@@ -15,14 +15,24 @@ CUDA toolkit.  The phases, each of which raises on failure:
                per-channel m, for both output contracts: the Q kernel
                bit-exact, the float kernel within rtol 5e-4 / atol 1e-5
                with flags equal outside a 1e-4 relative band around the
-               threshold.  Kernel and plain times from CUDA events;
-  4. engine  — StreamEngine(4096, "cuda") and (4096, "cuda-q") on the
-               card against the same engines on the CPU through uneven
-               chunks, a ragged call, per-slot m and slot churn;
-  5. stream  — the main path: StreamEngine(65536, backend) for "cuda"
-               and "cuda-q" over 8 device-resident chunks of T = 512,
-               samples/s, and the kernels' launch counts (one per
-               process call).
+               threshold.  The ensemble kernel (K = 5 members, W = 8,
+               QFormat(32, 20)) from a warm carried state with ragged
+               vlen, mixed m, per-channel member selections and vote
+               thresholds and NaN samples: bits, vote, k, all five
+               score streams and the aux block as int32 words
+               bit-exact, the scores' largest difference printed.
+               Kernel and
+               plain times from CUDA events, device time from the
+               profiler;
+  4. engine  — StreamEngine(4096, "cuda"), (4096, "cuda-q") and
+               (4096, "ensemble") on the card against the same engines
+               on the CPU through uneven chunks, ragged calls, per-slot
+               m, member selection and slot churn; the ensemble's TEDA
+               lane against the "cuda" engine on the same stream;
+  5. stream  — the main path: StreamEngine(65536, backend) for "cuda",
+               "cuda-q" and "ensemble" over 8 device-resident chunks of
+               T = 512, samples/s, and each kernel's launch count (one
+               per process call), read right after its own path.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi prints them, and {"ok": true, "device": ...}.
@@ -96,6 +106,14 @@ def q_ops_per_sample(frac_len):
     # three widening multiplies (~12), three saturating adds and one
     # subtract (~4), counter, shift and compares (~10)
     return 6 * 11 + 2 * 5 * frac_len + 3 * 12 + 4 * 4 + 10
+
+
+def ensemble_ops_per_sample(frac_len):
+    # the teda-q lane (above, plus ~8 for the quantizer and the score),
+    # the moment fabric (sums, mean, deviation: ~6), teda (the float
+    # scan's 19), rde (~9), zscore (~12), hst (8 leaves x 3 + ~8) and
+    # the vote over 5 members (~20)
+    return q_ops_per_sample(frac_len) + 8 + 6 + 19 + 9 + 12 + 32 + 20
 
 
 def bound_ms(t_len, c, in_row_bytes, out_row_bytes, n_carry_rows,
@@ -299,6 +317,144 @@ def phase_kernels(seed):
     return records
 
 
+ALL5 = ("teda", "rde", "zscore", "hst", "teda-q")
+WINDOW = 8  # the repo's DEFAULT_WINDOW
+
+
+def _words(v):
+    return v.view(torch.int32)
+
+
+def _score_diff(a, b):
+    """Largest |a - b| of two float score streams: a NaN on both sides
+    counts 0, a NaN on one side only counts inf."""
+    both = a.isnan() & b.isnan()
+    err = torch.where(both, 0.0, (a - b).abs()).nan_to_num(nan=float("inf"))
+    return float(err.max()) if err.numel() else 0.0
+
+
+def profiled_device_ms(fn, reps, name):
+    """Device milliseconds per call of the kernels whose name contains
+    `name`, from a torch.profiler window over `reps` calls of `fn`, or
+    None when the profiler saw no device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if str(ev.device_type).endswith("CUDA") and name in ev.key)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def _ensemble_inputs(rng, c, t_len, dev):
+    """The phase-3 ensemble inputs: a spiked stream with NaN samples,
+    ragged vlen (0 and T included), m in {2, 3, 4.5, 4.003289222717285},
+    member selections (some channels single-member, some with a member
+    unselected) and thresholds from the "any", "majority" and "all"
+    modes."""
+    from repro_torch.detectors import vote_threshold
+
+    _, _, x = _stream_inputs(rng, c, t_len)
+    x[rng.random((t_len, c)) < 1e-4] = np.nan
+    m = rng.choice(np.array([2.0, 3.0, 4.5, 4.003289222717285],
+                            np.float32), size=c)
+    vl = _ragged_vlen(rng, c, t_len)
+    sel = np.ones((len(ALL5), c), np.float32)
+    kind = rng.integers(0, 4, size=c)
+    single = kind == 1
+    sel[:, single] = 0.0
+    sel[rng.integers(0, len(ALL5), size=int(single.sum())),
+        np.flatnonzero(single)] = 1.0
+    drop = kind == 2
+    sel[rng.integers(0, len(ALL5), size=int(drop.sum())),
+        np.flatnonzero(drop)] = 0.0
+    sel[1, kind == 3] = 0.5  # a non-unit weight
+    modes = rng.choice(np.array(["any", "majority", "all"]), size=c)
+    thr = np.array([vote_threshold(str(mode), sel[:, i])
+                    for i, mode in enumerate(modes)], np.float32)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return put(x), put(vl), put(m), put(thr), put(sel)
+
+
+def phase_ensemble_kernel(seed):
+    """The ensemble kernel against its plain version at full width."""
+    from repro_torch.detectors.spec import ensemble_spec
+    from repro_torch.fixedpoint import QFormat
+    from repro_torch.kernels import ensemble_scan as ek
+
+    dev = torch.device("cuda")
+    c, t_len = C_WIDE, T_CHUNK
+    fmt = QFormat(32, 20)
+    rng = np.random.default_rng(seed + 10)
+    spec = ensemble_spec(ALL5, WINDOW)
+    kw = dict(detectors=ALL5, window=WINDOW, fmt=fmt)
+    # warm carried state: one 1,024-row chunk with its own ragged vlen
+    wx, wvl, m, thr, sel = _ensemble_inputs(rng, c, 2 * t_len, dev)
+    zeros = torch.zeros(c, device=dev)
+    warm = ek.ensemble_scan_call(wx, wvl, zeros, m, thr, sel,
+                                 spec.init_aux(c, device=dev), **kw)
+    k0, aux0 = warm[2], warm[3]
+    del wx, warm
+    x, vl, _, _, _ = _ensemble_inputs(rng, c, t_len, dev)
+    args = (x, vl, k0, m, thr, sel, aux0)
+    log(f"[kernels] ensemble_scan C={c} T={t_len} K={len(ALL5)} "
+        f"W={WINDOW} {fmt}: k0 in [{int(k0.min())}, {int(k0.max())}], "
+        f"vlen 0 on {int((vl == 0).sum())}, T on "
+        f"{int((vl == t_len).sum())} channels, {int(x.isnan().sum())} NaN "
+        f"samples, {int((sel > 0).sum(0).eq(1).sum())} single-member "
+        f"channels")
+
+    kern = ek.ensemble_scan_call(*args, **kw)
+    plain = ek.ensemble_scan_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("bits", "vote", "fk", "aux"), kern, plain):
+        if name == "aux":
+            a, b = _words(a), _words(b)
+        check(torch.equal(a, b), f"ensemble {name}: kernel and plain differ")
+    score_err = 0.0
+    for d, name in enumerate(ALL5):
+        a, b = kern[4][d], plain[4][d]
+        err = _score_diff(a, b)
+        score_err = max(score_err, err)
+        check(torch.equal(_words(a), _words(b)),
+              f"ensemble {name} scores: kernel and plain differ (largest "
+              f"difference {err!r})")
+    bits = kern[0]
+    log(f"[kernels] ensemble_scan: bits, vote, k, all five score streams "
+        f"and aux words bit-exact; scores' largest difference "
+        f"{score_err!r}; {int(bits.ne(0).sum())} flagged samples, "
+        f"{int(kern[1].sum())} votes, per member "
+        f"{[int(((bits >> d) & 1).sum()) for d in range(len(ALL5))]}")
+
+    ms = cuda_ms(lambda: ek.ensemble_scan_call(*args, **kw), reps=20)
+    dev_ms = profiled_device_ms(lambda: ek.ensemble_scan_call(*args, **kw),
+                                5, "ensemble_scan")
+    plain_ms = cuda_ms(lambda: ek.ensemble_scan_plain(*args, **kw), reps=2,
+                       warmup=1)
+    # x in; bits (4 B), vote (1 B) and K scores out per sample; the aux
+    # block in and out, the sel rows and the k0/m/thr/vlen/fk rows
+    bound = bound_ms(t_len, c, 4, 4 + 1 + 4 * len(ALL5),
+                     2 * spec.rows + len(ALL5) + 5,
+                     ensemble_ops_per_sample(fmt.frac_len))
+    log(f"[kernels] ensemble_scan {ms:.4f} ms by events, "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} "
+        f"device time (profiler), plain {plain_ms:.2f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]})")
+    return {"ensemble_scan": {
+        "name": "ensemble_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ensemble_scan.cu",
+        "replaces": "src/repro/kernels/ensemble_scan.py:183",
+        "max_abs_err": score_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}}
+
+
 def _engine_compare(tag, q, gpu_out, cpu_out, gpu_eng, cpu_eng, vl,
                     m_rows):
     t_len = gpu_out["ecc"].shape[0]
@@ -376,6 +532,105 @@ def phase_engine(seed):
             f"{len(steps)} calls with ragged, per-slot m, churn, subset")
 
 
+def _ensemble_compare(tag, go, co, gpu, cpu):
+    """GPU ensemble engine against the CPU one, everything bit-exact
+    (the scores' largest difference returned)."""
+    for key in ("det_flags", "outlier"):
+        check(torch.equal(go[key].cpu(), co[key]),
+              f"ensemble engine {tag}: {key} differs")
+    err = 0.0
+    for d, name in enumerate(gpu.backend.detectors):
+        a, b = go["scores"][d].cpu(), co["scores"][d]
+        e = _score_diff(a, b)
+        err = max(err, e)
+        check(torch.equal(_words(a), _words(b)),
+              f"ensemble engine {tag}: {name} scores differ (largest "
+              f"difference {e!r})")
+    for f in ("k", "active"):
+        check(torch.equal(getattr(gpu.state, f).cpu(),
+                          getattr(cpu.state, f)),
+              f"ensemble engine {tag}: state {f} differs")
+    check(torch.equal(_words(gpu.state.aux.cpu()), _words(cpu.state.aux)),
+          f"ensemble engine {tag}: aux words differ")
+    return err
+
+
+def phase_ensemble_engine(seed):
+    from repro_torch.engine import StreamEngine
+    from repro_torch.fixedpoint import QFormat
+    from repro_torch.kernels import ensemble_scan as ek
+    from repro_torch.kernels import teda_scan as fk
+
+    c = C_ENGINE
+    kw = dict(detectors=ALL5, window=WINDOW, fmt=QFormat(32, 20))
+    gpu = StreamEngine(c, "ensemble", **kw)
+    cpu = StreamEngine(c, "ensemble", device="cpu", **kw)
+    check(gpu.device.type == "cuda", "ensemble engine default device is "
+          "not CUDA")
+    rng = np.random.default_rng(seed + 3)
+    steps = ("uniform T=37", "ragged T=128", "rde-only slots T=64",
+             "vote all, churn T=5", "active subset T=100")
+    err = 0.0
+    for tag in steps:
+        t_len = int(tag.split("T=")[1])
+        _, _, x = _stream_inputs(rng, c, t_len)
+        vl, active = None, None
+        for eng in (gpu, cpu):
+            if tag.startswith("rde"):
+                eng.detach([11, 12])
+                eng.attach([11, 12], detectors=("rde",))
+                eng.set_m([11, 13], [2.0, 2.0])
+            if tag.startswith("vote"):
+                eng.set_detectors(np.arange(0, c, 3), vote="all")
+                eng.detach([5, 6, c - 1])
+                eng.reset([8, 9])
+                eng.attach([5], m=2.5)
+        if tag.startswith("ragged"):
+            vl = _ragged_vlen(rng, c, t_len)
+        if tag.startswith("active"):
+            active = np.flatnonzero(rng.random(c) < 0.7)
+        n = ek.launches
+        go = gpu.process(x, active=active, valid_lens=vl)
+        check(ek.launches == n + 1, "ensemble engine: not one kernel "
+              "launch per process call")
+        co = cpu.process(x, active=active, valid_lens=vl)
+        err = max(err, _ensemble_compare(tag, go, co, gpu, cpu))
+    log(f"[engine] ensemble: GPU engine equals the CPU engine over "
+        f"{len(steps)} calls (uniform, ragged, rde-only slots, vote all, "
+        f"churn, subset): bits, votes, all scores, k and aux words "
+        f"bit-exact, scores' largest difference {err!r}")
+
+    # the TEDA lane against the "cuda" engine, and against the float
+    # kernel from the lane's own carried (k, S, var)
+    ens = StreamEngine(c, "ensemble", detectors=("teda",), window=WINDOW)
+    cud = StreamEngine(c, "cuda")
+    w = WINDOW
+    for i in range(3):
+        _, _, x = _stream_inputs(rng, c, 64)
+        xd = torch.from_numpy(x).cuda()
+        st = ens.state
+        lane = fk.teda_scan_call(xd, torch.full((c,), 3.0, device="cuda"),
+                                 torch.full((c,), 64, dtype=torch.int32,
+                                            device="cuda"),
+                                 st.k, st.aux[w - 1], st.aux[2 * w])
+        oe, oc = ens.process(xd), cud.process(xd)
+        check(torch.equal(oe["outlier"], oc["outlier"]),
+              "ensemble teda lane: flags differ from the cuda engine")
+        check(torch.equal(oe["scores"][0], lane[2]) and torch.equal(
+            oe["det_flags"] == 1, lane[3]), "ensemble teda lane: ecc or "
+            "flags differ from teda_scan on the same carries")
+        check(torch.equal(ens.state.aux[w - 1], lane[5])
+              and torch.equal(ens.state.aux[2 * w], lane[6]),
+              "ensemble teda lane: carries differ from teda_scan")
+        if i == 0:
+            check(torch.equal(oe["scores"][0], oc["ecc"]),
+                  "ensemble teda lane: first-chunk ecc differs from the "
+                  "cuda engine")
+    log("[engine] ensemble teda lane: flags equal to the cuda engine over "
+        "3 chunks (first chunk's ecc bit-identical); ecc, flags and "
+        "carries bit-identical to teda_scan from the lane's own carries")
+
+
 def phase_stream(seed, smi):
     from repro_torch.engine import StreamEngine
     from repro_torch.fixedpoint import QFormat
@@ -447,7 +702,7 @@ def phase_stream(seed, smi):
           f"{N_CHUNKS} process calls")
     log(f"[stream] launches during the main path: {launches}")
     for backend, eng in engines.items():
-        profile_window(backend, eng, feeds[backend][:4])
+        profile_window(backend, eng, feeds[backend][:6])
 
     # the first chunk of 64 channels against the float64 oracle
     x0 = chunks[0][:, :64].cpu().numpy()
@@ -465,25 +720,143 @@ def phase_stream(seed, smi):
     return launches
 
 
-def profile_window(backend, eng, feed):
-    """Where an engine call's time goes: torch.profiler over a few
-    `process` calls; prints the device's busy share of the window and
-    the device time by kernel."""
+def phase_ensemble_stream(seed, smi):
+    """The "ensemble" main path at full width: returns its launches."""
+    from repro_torch.detectors.ensemble import ensemble_ref
+    from repro_torch.engine import StreamEngine
+    from repro_torch.fixedpoint import QFormat
+    from repro_torch.kernels import ensemble_scan as ek
+
+    dev = torch.device("cuda")
+    c, t_len = C_WIDE, T_CHUNK
+    fmt = QFormat(32, 20)
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    mu = torch.randn(c, generator=gen, device=dev) * 2.0
+    sigma = torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5
+    chunks = []
+    for _ in range(N_CHUNKS):
+        ch = mu + sigma * torch.randn((t_len, c), generator=gen, device=dev)
+        spikes = torch.rand((t_len, c), generator=gen, device=dev) < 0.002
+        chunks.append(torch.where(spikes, ch + 12.0 * sigma, ch))
+    eng = StreamEngine(c, "ensemble", detectors=ALL5, window=WINDOW,
+                       fmt=fmt, vote="majority")
+    held = [eng.process(ch) for ch in chunks]  # untimed pass
+    torch.cuda.synchronize()
+    del held
+    eng.reset()
+
+    ek.launches = 0
+    outs = []
+    t0 = time.perf_counter()
+    for ch in chunks:
+        outs.append(eng.process(ch))
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ek.launches
+    check(launches == N_CHUNKS, f"ensemble_scan launched {launches} times "
+          f"for {N_CHUNKS} process calls")
+
+    n_samples = N_CHUNKS * t_len * c
+    for o in outs:
+        check(tuple(o["det_flags"].shape) == (t_len, c)
+              and tuple(o["outlier"].shape) == (t_len, c)
+              and tuple(o["scores"].shape) == (len(ALL5), t_len, c),
+              "stream ensemble: output shape")
+    check(bool(torch.stack([o["scores"] for o in outs]).isfinite().all()),
+          "stream ensemble: non-finite scores")
+    check(bool((eng.state.k == N_CHUNKS * t_len).all()),
+          f"stream ensemble: k is not {N_CHUNKS * t_len} everywhere")
+    per = [sum(int(((o["det_flags"] >> d) & 1).sum()) for o in outs)
+           for d in range(len(ALL5))]
+    votes = sum(int(o["outlier"].sum()) for o in outs)
+    check(all(per[d] > 0 for d in (0, 1, 3, 4)) and votes > 0,
+          f"stream ensemble: too few flags on a spiked stream ({per})")
+    log(f"[stream] ensemble: {n_samples / wall:.6e} samples/s "
+        f"({N_CHUNKS} x ({t_len}, {c}), K={len(ALL5)}, in "
+        f"{wall * 1e3:.3f} ms, {wall * 1e3 / N_CHUNKS:.3f} ms per call, "
+        f"host enqueue {enqueue * 1e3:.3f} ms, flags per member {per}, "
+        f"{votes} votes) on {smi}")
+    log(f"[stream] launches during the ensemble main path: "
+        f"{{'ensemble_scan': {launches}}}")
+    profile_window("ensemble", eng, chunks[:6])
+
+    # the first 128 rows of 64 channels against the oracle composition:
+    # rde, hst and teda-q exact (their oracles run the kernel's operations
+    # in the kernel's order); teda and zscore flags equal outside a 1e-4
+    # band around their thresholds, scores within 5e-3; the vote equal
+    # wherever the bits are
+    rows, cols = 128, 64
+    x0 = chunks[0][:rows, :cols].cpu()
+    ref = ensemble_ref(x0, 3.0, detectors=ALL5, window=WINDOW, fmt=fmt)
+    got = outs[0]
+    bits = got["det_flags"][:rows, :cols].cpu()
+    k = torch.arange(1, rows + 1, dtype=torch.float32)[:, None]
+    for d, name in enumerate(ALL5):
+        mine = ((bits >> d) & 1).bool()
+        want = ref["per_detector"][name]
+        score = got["scores"][d, :rows, :cols].cpu()
+        rscore = ref["per_score"][name]
+        if name in ("teda", "zscore"):
+            val, thr = ((rscore * 0.5, 10.0 / (2.0 * k)) if name == "teda"
+                        else (rscore, torch.full_like(rscore, 9.0)))
+            band = (val - thr).abs() <= BAND * thr
+            check(not bool(((mine != want) & ~band).any()),
+                  f"stream ensemble: {name} flags differ from the oracle "
+                  "outside the threshold band")
+            check(torch.allclose(score, rscore, rtol=5e-3, atol=5e-3),
+                  f"stream ensemble: {name} scores differ from the oracle")
+        else:
+            check(torch.equal(mine, want) and torch.equal(
+                _words(score), _words(rscore)),
+                f"stream ensemble: {name} flags or scores differ from the "
+                "oracle")
+    same = bits == ref["det_flags"]
+    check(torch.equal(got["outlier"][:rows, :cols].cpu()[same],
+                      ref["vote"][same]),
+          "stream ensemble: vote differs from the oracle's")
+    log(f"[stream] ensemble first chunk ({rows} rows x {cols} channels) "
+        "agrees with the oracle composition ensemble_ref")
+    return {"ensemble_scan": launches}
+
+
+def profile_window(backend, eng, feed, warmup=2):
+    """Where an engine call's time goes: torch.profiler over the
+    `process` calls of `feed` but the first `warmup`, which the profiler
+    traces and drops so that its own start-up falls outside the window.
+    Prints the device's busy share of that one window (wall clock from
+    the first recorded call to the end of the last one's device work)
+    and the device time by kernel."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    n_active = len(feed) - warmup
+    sched = torch.profiler.schedule(wait=0, warmup=warmup, active=n_active,
+                                    repeat=1)
+    traced = []  # the recorded cycle's events, handed over as it ends
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for ch in feed:
+    with torch.profiler.profile(
+            activities=acts, schedule=sched,
+            on_trace_ready=lambda p: traced.append(p.key_averages())) \
+            as prof:
+        for i, ch in enumerate(feed):
             eng.process(ch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+            # the device is idle as recording starts and when it stops
+            if i in (warmup - 1, len(feed) - 1):
+                torch.cuda.synchronize()
+            if i == len(feed) - 1:
+                wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
+            if i == warmup - 1:
+                t0 = time.perf_counter()
+    check(len(traced) == 1, f"profile {backend}: the profiler recorded "
+          f"{len(traced)} cycles, not 1")
     rows = []
-    for ev in prof.key_averages():
+    for ev in traced[0]:
         # the device's own events (kernels, copies, fills), not the
-        # host ops that launched them
+        # host ops that launched them nor the step annotations
         if str(ev.device_type).endswith("CUDA") \
-                and ev.self_device_time_total > 0:
+                and ev.self_device_time_total > 0 \
+                and not ev.key.startswith("ProfilerStep"):
             rows.append((ev.self_device_time_total, ev.key, ev.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
@@ -491,8 +864,8 @@ def profile_window(backend, eng, feed):
         log(f"[profile] {backend}: the profiler saw no device time "
             "(not measured)")
         return
-    log(f"[profile] {backend}: {len(feed)} calls in {wall_us:.1f} us "
-        f"(profiled), device busy {busy:.1f} us = "
+    log(f"[profile] {backend}: {n_active} calls after {warmup} dropped, "
+        f"in {wall_us:.1f} us (profiled), device busy {busy:.1f} us = "
         f"{100.0 * busy / wall_us:.1f}% of the window")
     for dev_us, key, count in rows[:6]:
         log(f"[profile]   {dev_us:10.1f} us  x{count:<4d} {key[:90]}")
@@ -519,9 +892,12 @@ def main(argv=None):
     smi = phase_device()
     phase_build()
     records = phase_kernels(args.seed)
+    records.update(phase_ensemble_kernel(args.seed))
     torch.cuda.empty_cache()
     phase_engine(args.seed)
+    phase_ensemble_engine(args.seed)
     launches = phase_stream(args.seed, smi)
+    launches.update(phase_ensemble_stream(args.seed, smi))
     for name, rec in records.items():
         rec["launches"] = launches[name]
     check("jax" not in sys.modules, "jax was imported")

@@ -4,8 +4,8 @@
 // sat_sub, sat_mul / _mul_wide) and kernels/qdiv.py (fast_div_mag,
 // fast_div_qq, fast_div_qi), and with their PyTorch ports in
 // repro_torch/fixedpoint/qformat.py and repro_torch/kernels/qdiv.py.
-// Shared by every Q kernel: teda_q_scan.cu now, the ensemble kernel's
-// Q lane later.
+// Shared by every Q kernel: teda_q_scan.cu and the ensemble kernel's
+// teda-q lane (ensemble_scan.cu).
 #pragma once
 
 #include <cstdint>
@@ -125,4 +125,56 @@ __device__ __forceinline__ int32_t q_fast_div_qi(const QFmt& f, int32_t num,
   const int32_t q = (int32_t)q_fast_div_mag(q_mag(num), q_mag(k), 0,
                                             f.round, (uint32_t)f.qmax);
   return neg ? -q : q;
+}
+
+// Float -> Q, bit-equal to QFormat.quantize: the float32 product with
+// the scale, round half to even, NaN -> 0, then a saturating convert
+// (infinities included) into [-qmax, qmax].
+__device__ __forceinline__ int32_t q_quantize_f32(const QFmt& f, float x) {
+  const float v = rintf(__fmul_rn(x, (float)(1u << f.frac_len)));
+  if (v != v) return 0;
+  const double d = (double)v;
+  if (d >= (double)f.qmax) return f.qmax;
+  if (d <= -(double)f.qmax) return -f.qmax;
+  return (int32_t)d;
+}
+
+// One row of univariate Q-format TEDA, the reference's `_q_step_u`
+// (eqs (1)-(6)) at instant k from the carried mean and var:
+//   rk = (k-1)/k (Q/Q), inv = 1/k, thr = msq1/(2k), xk = x/k (Q/int)
+//   mean_n = sat(rk*mean + xk)         (k = 1 gives rk = 0, x/1 = x)
+//   d2 = (x - mean_n)^2, e = d2/k (0 at k = 1)
+//   var_n = sat(rk*var + e)
+//   ecc = inv + (d2/var_n)/k (var_n > 0 guard)
+//   outlier = (ecc >> 1) > thr && k >= 2
+// The caller gates the outlier on validity and freezes its carries.
+struct QTedaRow {
+  int32_t mean;
+  int32_t var;
+  int32_t ecc;
+  bool outlier;
+};
+
+__device__ __forceinline__ QTedaRow q_teda_row(const QFmt& f, int32_t k,
+                                               int32_t xv, int32_t mean,
+                                               int32_t var, int32_t msq1) {
+  const int32_t one = (int32_t)(1u << f.frac_len);
+  const int32_t rk = q_fast_div_qq(f, k - 1, k);
+  const int32_t inv = q_fast_div_qi(f, one, k);
+  const int32_t thr = q_fast_div_qi(f, msq1, 2 * k);
+  const int32_t xk = q_fast_div_qi(f, xv, k);
+  QTedaRow r;
+  // MEAN, eq (2)
+  r.mean = q_sat_add(f, q_sat_mul(f, rk, mean), xk);
+  // VARIANCE, eq (3)
+  const int32_t d = q_sat_sub(f, xv, r.mean);
+  const int32_t d2 = q_sat_mul(f, d, d);
+  const int32_t e = (k <= 1) ? 0 : q_fast_div_qi(f, d2, k);
+  r.var = q_sat_add(f, q_sat_mul(f, rk, var), e);
+  // ECCENTRICITY + OUTLIER, eqs (1), (5), (6)
+  const int32_t term =
+      r.var > 0 ? q_fast_div_qi(f, q_fast_div_qq(f, d2, r.var), k) : 0;
+  r.ecc = q_sat_add(f, inv, term);
+  r.outlier = ((r.ecc >> 1) > thr) && (k >= 2);
+  return r;
 }

@@ -6,9 +6,9 @@
 // hoisted the seven dividers into whole-block vector passes and kept
 // two sequential multiply-add loops (mean, var) over banked rows; here
 // one thread walks its channel's rows in order and evaluates every
-// divider inline through qformat.cuh.  Each row sees the same inputs in
-// the same order as the reference's per-row step (`_q_step_u`), so the
-// bits are the same:
+// divider inline (`q_teda_row` in qformat.cuh).  Each row sees the same
+// inputs in the same order as the reference's per-row step
+// (`_q_step_u`), so the bits are the same:
 //   k = k0 + t + 1
 //   rk = (k-1)/k (Q/Q), inv = 1/k, thr = msq1/(2k), xk = x/k (Q/int)
 //   mean_n = sat(rk*mean + xk)         (k = 1 gives rk = 0, x/1 = x)
@@ -56,7 +56,6 @@ __global__ void teda_q_scan_kernel(const int32_t* __restrict__ x,
   const int32_t kk0 = k0[c];
   const int32_t vl = vlen[c];
   const int32_t mq = msq1[c];
-  const int32_t one = (int32_t)(1u << f.frac_len);
   int32_t mean = mean0[c];
   int32_t var = var0[c];
   int32_t x_next = T > 0 ? x[c] : 0;
@@ -66,33 +65,16 @@ __global__ void teda_q_scan_kernel(const int32_t* __restrict__ x,
     if (t + 1 < T) x_next = x[idx + C];  // next row's load in flight
     const bool valid = t < vl;
     const int32_t k = kk0 + (int32_t)t + 1;
-    const int32_t rk = q_fast_div_qq(f, k - 1, k);
-    const int32_t inv = q_fast_div_qi(f, one, k);
-    const int32_t thr = q_fast_div_qi(f, mq, 2 * k);
-    const int32_t xk = q_fast_div_qi(f, xv, k);
-
-    // MEAN, eq (2)
-    const int32_t mean_n = q_sat_add(f, q_sat_mul(f, rk, mean), xk);
-    // VARIANCE, eq (3)
-    const int32_t d = q_sat_sub(f, xv, mean_n);
-    const int32_t d2 = q_sat_mul(f, d, d);
-    const int32_t e = (k <= 1) ? 0 : q_fast_div_qi(f, d2, k);
-    const int32_t var_n = q_sat_add(f, q_sat_mul(f, rk, var), e);
-    // ECCENTRICITY + OUTLIER, eqs (1), (5), (6)
-    const int32_t term =
-        var_n > 0 ? q_fast_div_qi(f, q_fast_div_qq(f, d2, var_n), k) : 0;
-    const int32_t ecc = q_sat_add(f, inv, term);
-    const bool outl = valid && ((ecc >> 1) > thr) && (k >= 2);
-
+    const QTedaRow q = q_teda_row(f, k, xv, mean, var, mq);
     if (valid) {
-      mean = mean_n;
-      var = var_n;
+      mean = q.mean;
+      var = q.var;
     }
-    ecc_out[idx] = ecc;
-    outlier_out[idx] = outl ? 1 : 0;
+    ecc_out[idx] = q.ecc;
+    outlier_out[idx] = (valid && q.outlier) ? 1 : 0;
     if (Full) {
-      mean_out[idx] = mean_n;
-      var_out[idx] = var_n;
+      mean_out[idx] = q.mean;
+      var_out[idx] = q.var;
     }
   }
   fk[c] = kk0 + vl;

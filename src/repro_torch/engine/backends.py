@@ -18,8 +18,8 @@ the single-shot result (bit for bit on the Q path).
 
 Register out-of-tree executors with `@register_backend("name")`.
 `listed=False` registers a backend that `get_backend` resolves but
-`list_backends()` omits; "ensemble" is registered so, and raises until
-its kernel is ported.
+`list_backends()` omits: "ensemble", the fused detector ensemble
+(`detectors/backend.py`), is registered so.
 """
 from __future__ import annotations
 
@@ -193,8 +193,7 @@ class CudaQBackend(_KernelBackend):
 
 @register_backend("ensemble", listed=False)
 def _ensemble_factory(**opts) -> Backend:
-    """The detector-ensemble backend needs the fused ensemble kernel,
-    which this package does not have yet."""
-    raise NotImplementedError(
-        "backend 'ensemble' is not yet ported to repro_torch: its fused "
-        "ensemble kernel is still to be written")
+    """The fused multi-detector ensemble backend, imported on first use:
+    `repro_torch.detectors.backend` imports this module for `Backend`."""
+    from repro_torch.detectors.backend import EnsembleBackend
+    return EnsembleBackend(**opts)

@@ -10,10 +10,16 @@ touching neighbours.  `process` takes per-call raggedness controls:
 `valid_lens` gives every slot its own retired-sample count for the call,
 and the `active` participation mask is the vlen=0 special case.
 
+Under the "ensemble" backend the engine also carries the detectors'
+packed aux block and, per slot, the members' selection weights and the
+vote threshold (`attach(detectors=, vote=)`, `set_detectors`); the
+(K, C) weight and (C,) threshold rows stay on the device and are
+uploaded again only when a slot call changes them.
+
 The engine runs on the CUDA device unless the caller asks for the CPU
 (`device="cpu"`, where the kernel backends run their plain versions);
 it never moves to the CPU on its own.  Not ported from the reference:
-the `mesh=` channel fan-out and the detector-ensemble legs.
+the `mesh=` channel fan-out.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.teda import TedaState
+from repro_torch.detectors import vote_threshold
 from repro_torch.engine.backends import get_backend
 from repro_torch.engine.state import (EngineState, engine_attach,
                                       engine_detach, engine_init,
@@ -90,8 +97,25 @@ class StreamEngine:
         self.backend = get_backend(backend, m=m, fmt=fmt, block_t=block_t,
                                    block_c=block_c, lane_pad=lane_pad,
                                    **backend_opts)
+        # aux-carrying backends (the detector ensemble) grow the packed
+        # state by backend.aux_rows rows per slot and take per-slot
+        # member weights and vote thresholds on each call
+        n_aux = int(getattr(self.backend, "aux_rows", 0) or 0)
+        self._ensemble = n_aux > 0
         self.state = engine_init(self.capacity, self.backend.state_dtype,
-                                 active=auto_attach, device=self.device)
+                                 active=auto_attach, device=self.device,
+                                 aux_rows=n_aux)
+        if self._ensemble:
+            self._det_names = tuple(self.backend.detectors)
+            self._det_w = np.broadcast_to(
+                np.asarray(self.backend.weights, np.float32)[:, None],
+                (len(self._det_names), self.capacity)).copy()
+            self._det_thr = np.full((self.capacity,),
+                                    self.backend.default_threshold,
+                                    np.float32)
+            # device copies of (_det_w, _det_thr); None once a slot call
+            # changed the host rows
+            self._det_dev = None
         # per-slot outlier sensitivity, eq (6) m — float even on the Q
         # path (the backend quantizes m^2+1 itself)
         self._m = np.full((self.capacity,), self.default_m, np.float32)
@@ -107,13 +131,17 @@ class StreamEngine:
         return self._active_cache[1]
 
     def attach(self, slots=None, n: Optional[int] = None, *,
-               m: Optional[float] = None):
+               m: Optional[float] = None, detectors=None, vote=None):
         """Activate slots for new streams; returns the slot indices.
 
         With `slots=None`, grabs the first `n` free slots (all free
         slots when `n` is also None).  Attaching an occupied slot, or
         asking for slots on a full engine, raises with the occupancy.
-        `m` sets the new tenants' outlier sensitivity.
+        `m` sets the new tenants' outlier sensitivity.  Under the
+        ensemble backend, `detectors` selects the members these tenants
+        run (default: all) and `vote` their vote mode or fraction
+        (default: the backend's) — see `set_detectors`; both raise on
+        another backend.
         """
         occupied = self._active_mask_host()
         n_act, cap = int(occupied.sum()), self.capacity
@@ -140,12 +168,84 @@ class StreamEngine:
                     f"({n_act}/{cap} active); detach or reset them first")
         self.state = engine_attach(self.state, idx)
         self._m[idx] = self.default_m if m is None else float(m)
+        if detectors is not None or vote is not None:
+            self.set_detectors(idx, detectors=detectors, vote=vote)
+        elif self._ensemble:
+            self._reset_detectors(slot_mask(idx, self.capacity).numpy())
         return idx
 
     def detach(self, slots):
         self.state = engine_detach(self.state, slots)
-        # recycled slots revert to the default sensitivity
-        self._m[slot_mask(slots, self.capacity).numpy()] = self.default_m
+        # recycled slots revert to the default sensitivity and detectors
+        mask = slot_mask(slots, self.capacity).numpy()
+        self._m[mask] = self.default_m
+        if self._ensemble:
+            self._reset_detectors(mask)
+
+    def _reset_detectors(self, mask: np.ndarray) -> None:
+        self._det_w[:, mask] = np.asarray(
+            self.backend.weights, np.float32)[:, None]
+        self._det_thr[mask] = self.backend.default_threshold
+        self._det_dev = None
+
+    def _require_ensemble(self, what: str) -> None:
+        if not self._ensemble:
+            raise ValueError(
+                f"backend {self.backend.name!r} has no detector ensemble; "
+                f"{what} needs backend='ensemble'")
+
+    def set_detectors(self, slots=None, *, detectors=None,
+                      vote=None) -> None:
+        """Re-select the members and vote mode of live slots.
+
+        `detectors` is a subset of the backend's members (None keeps all
+        of them); unselected members get weight 0 on those slots — their
+        state still advances, but they contribute neither flags nor vote
+        weight, so a masked slot is exactly a smaller ensemble.  `vote`
+        is "any" / "majority" / "all" or a weight fraction in (0, 1];
+        None keeps the backend's mode, over the selected weights.
+        """
+        self._require_ensemble("per-slot detectors")
+        mask = slot_mask(slots, self.capacity).numpy()
+        if detectors is None:
+            w = np.asarray(self.backend.weights, np.float32)
+        else:
+            chosen = ((detectors,) if isinstance(detectors, str)
+                      else tuple(detectors))
+            unknown = [d for d in chosen if d not in self._det_names]
+            if unknown or not chosen:
+                raise ValueError(
+                    f"detectors must be a non-empty subset of this "
+                    f"ensemble's members {list(self._det_names)}, got "
+                    f"{detectors!r}")
+            w = np.asarray(
+                [self.backend.weights[d] if name in chosen else 0.0
+                 for d, name in enumerate(self._det_names)], np.float32)
+        thr = vote_threshold(self.backend.vote if vote is None else vote,
+                             w)
+        self._det_w[:, mask] = w[:, None]
+        self._det_thr[mask] = thr
+        self._det_dev = None
+
+    def detector_config(self, slot: int) -> dict:
+        """The live member selection of one slot: {"detectors": the
+        selected member names, "weights": (K,) per-member weights,
+        "threshold": the vote-weight threshold}."""
+        self._require_ensemble("a detector config")
+        w = self._det_w[:, slot]
+        return {"detectors": tuple(n for d, n in enumerate(self._det_names)
+                                   if w[d] > 0),
+                "weights": w.copy(),
+                "threshold": float(self._det_thr[slot])}
+
+    def _detector_rows(self):
+        """The (K, C) weight and (C,) threshold rows on the device,
+        uploaded only after a slot call changed them."""
+        if self._det_dev is None:
+            self._det_dev = (
+                torch.as_tensor(self._det_w, device=self.device),
+                torch.as_tensor(self._det_thr, device=self.device))
+        return self._det_dev
 
     def reset(self, slots=None):
         self.state = engine_reset(self.state, slots)
@@ -171,23 +271,48 @@ class StreamEngine:
                 f"for capacity {self.capacity}")
         self._m[idx] = m
 
-    def load_state(self, arrays, m=None) -> None:
+    def load_state(self, arrays, m=None, *, weights=None,
+                   thresholds=None) -> None:
         """Take over packed state from host arrays.
 
-        `arrays` is (k, mean, var, active) — e.g. the fields of the JAX
-        package's `EngineState` as numpy arrays — in the backend's state
-        dtype (int32 Q bits are taken unchanged); `m` optionally sets
-        the per-slot sensitivity.  A live stream can so move to this
-        engine mid-flight and continue where it was.
+        `arrays` is (k, mean, var, active), plus the aux block under the
+        ensemble backend — e.g. the fields of the JAX package's
+        `EngineState` as numpy arrays — in the backend's state dtype
+        (int32 Q bits are taken unchanged; pass aux as its int32 view,
+        see `engine_state_from_numpy`).  `m` optionally sets the
+        per-slot sensitivity; under the ensemble backend `weights`
+        (K, C) and `thresholds` (C,) set the per-slot member weights and
+        vote thresholds.  A live stream can so move to this engine
+        mid-flight and continue where it was.
         """
-        k, mean, var, active = arrays
+        k, mean, var, active, *aux = arrays
+        if len(aux) != int(self._ensemble):
+            raise ValueError(
+                "arrays must be (k, mean, var, active)"
+                + (", aux)" if self._ensemble else ")")
+                + f" for backend {self.backend.name!r}")
         st = engine_state_from_numpy(k, mean, var, active,
                                      dtype=self.backend.state_dtype,
-                                     device=self.device)
+                                     device=self.device,
+                                     aux=aux[0] if aux else None)
         if st.k.shape != (self.capacity,):
             raise ValueError(
                 f"state must be ({self.capacity},) per field, got "
                 f"{tuple(st.k.shape)}")
+        if st.aux is not None:
+            self.backend.state_spec.validate_aux(st.aux, self.capacity)
+        if weights is not None or thresholds is not None:
+            self._require_ensemble("detector weights")
+            w = np.asarray(self._det_w if weights is None else weights,
+                           np.float32)
+            thr = np.asarray(self._det_thr if thresholds is None
+                             else thresholds, np.float32)
+            if w.shape != self._det_w.shape or thr.shape != (self.capacity,):
+                raise ValueError(
+                    f"weights must be {self._det_w.shape} and thresholds "
+                    f"({self.capacity},)")
+            self._det_w, self._det_thr = w.copy(), thr.copy()
+            self._det_dev = None
         self.state = st
         if m is not None:
             self.set_m(None, m)
@@ -220,7 +345,11 @@ class StreamEngine:
             self._c_samples.inc(retired)
 
     def process(self, x, active=None, valid_lens=None) -> dict:
-        """Feed one (T, capacity) chunk; returns per-sample verdicts.
+        """Feed one (T, capacity) chunk; returns per-sample verdicts:
+        {"ecc", "outlier"}, and under the ensemble backend {"ecc",
+        "outlier", "det_flags", "scores"} — "ecc" and "det_flags" are
+        the same (T, C) int32 detector bitmask, "outlier" the fused
+        vote, "scores" the (K, T, C) per-member score streams.
 
         `valid_lens` makes the call ragged: a scalar or per-slot
         (capacity,) int vector; slot c retires exactly valid_lens[c]
@@ -278,11 +407,17 @@ class StreamEngine:
             mv = mv[0]
         m_arg = self.backend.quantize_m(mv)
         self._account(t_len, vc, valid_lens is not None, active)
+        sel = thr = None
+        if self._ensemble:
+            sel, thr = self._detector_rows()
         new, outs = engine_process(
-            EngineState(k=st.k, mean=st.mean, var=st.var, active=vl > 0),
-            x, self.backend, m=m_arg, valid_lens=vl)
-        self.state = EngineState(k=new.k, mean=new.mean, var=new.var,
-                                 active=st.active)
+            EngineState(k=st.k, mean=st.mean, var=st.var, active=vl > 0,
+                        aux=st.aux),
+            x, self.backend, m=m_arg, valid_lens=vl, sel=sel, thr=thr)
+        self.state = new._replace(active=st.active)
+        if self._ensemble:
+            return {"ecc": outs["ecc"], "outlier": outs["outlier"],
+                    "det_flags": outs["ecc"], "scores": outs["scores"]}
         return {"ecc": outs["ecc"], "outlier": outs["outlier"]}
 
     # ------------------------------------------------------- introspection

@@ -24,7 +24,7 @@ __all__ = ["CSRC", "BUILD_DIR", "LIB_PATH", "build", "library", "check"]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_PATH = BUILD_DIR / "libteda_kernels.so"
-SOURCES = ("teda_scan.cu", "teda_q_scan.cu")
+SOURCES = ("teda_scan.cu", "teda_q_scan.cu", "ensemble_scan.cu")
 HEADERS = ("qformat.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # no --use_fast_math: it changes division and denormals on the float path
@@ -36,6 +36,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "teda_scan_f32": [_V] * 13 + [_LL, _LL, _I, _I, _V],
     "teda_q_scan_i32": [_V] * 13 + [_LL, _LL, _I, _I, _I, _I, _I, _V],
+    "ensemble_scan_f32": [_V] * 12 + [_LL, _LL] + [_I] * 14 + [_V],
 }
 
 _lib = None

@@ -18,6 +18,7 @@ from repro.fixedpoint import QFormat as JQ
 from repro_torch.engine import StreamEngine as TEngine
 from repro_torch.engine import get_backend, list_backends
 from repro_torch.fixedpoint import QFormat as TQ
+from repro_torch.kernels import ensemble_scan as ens_kernel
 from repro_torch.kernels import teda_q_scan as tq_kernel
 from repro_torch.kernels import teda_scan as tf_kernel
 
@@ -27,6 +28,7 @@ RTOL, ATOL = 5e-4, 1e-5
 SPEC = (32, 20, "trunc")
 PAIRS = [("scan", "scan"), ("cuda", "pallas"), ("cuda-q", "pallas-q")]
 C = 12
+ALL5 = ("teda", "rde", "zscore", "hst", "teda-q")
 
 
 def _engines(tname, jname, c=C, **kw):
@@ -189,8 +191,11 @@ def test_device_contract(monkeypatch):
 def test_registry_and_errors():
     assert list_backends() == ["cuda", "cuda-q", "scan"]
     assert "ensemble" in list_backends(all=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TEngine(4, "ensemble", device="cpu")
+    be = get_backend("ensemble")
+    assert be.detectors == ("teda", "rde", "zscore")
+    assert be.aux_rows == 17 and be.default_threshold == 1.5
+    with pytest.raises(ValueError, match="needs fmt"):
+        TEngine(4, "ensemble", device="cpu", detectors=ALL5)
     with pytest.raises(KeyError, match="unknown backend"):
         get_backend("pallas")
     with pytest.raises(ValueError, match="needs fmt"):
@@ -211,11 +216,12 @@ def test_registry_and_errors():
 
 
 def test_kernel_backends_launch_nothing_on_cpu():
-    n = (tf_kernel.launches, tq_kernel.launches)
-    for b in ("cuda", "cuda-q"):
-        TEngine(4, b, device="cpu", fmt=TQ(*SPEC)).process(
+    n = (tf_kernel.launches, tq_kernel.launches, ens_kernel.launches)
+    for b in ("cuda", "cuda-q", "ensemble"):
+        TEngine(4, b, device="cpu", fmt=TQ(*SPEC), detectors=ALL5).process(
             np.ones((2, 4), np.float32))
-    assert (tf_kernel.launches, tq_kernel.launches) == n
+    assert (tf_kernel.launches, tq_kernel.launches,
+            ens_kernel.launches) == n
 
 
 def test_engine_step_matches_jax():
@@ -241,3 +247,212 @@ def test_engine_step_matches_jax():
     q = t_init(5, torch.int32)
     with pytest.raises(TypeError, match="float-state only"):
         t_step(q, torch.zeros(5))
+
+
+# ------------------------------------------------- the ensemble backend
+ENS = dict(detectors=ALL5, window=4, vote="majority")
+MOMENT = ("teda", "rde", "zscore")
+
+
+def _ens_engines(c=C, **kw):
+    t = TEngine(c, "ensemble", device="cpu", fmt=TQ(*SPEC), **ENS, **kw)
+    j = JEngine(c, "ensemble", fmt=JQ(*SPEC), block_t=8, interpret=True,
+                **ENS, **kw)
+    return t, j
+
+
+def _spiky(t, c, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(t, c)) + rng.normal(0, 2, size=c)) \
+        .astype(np.float32)
+    spikes = rng.random((t, c)) < 0.05
+    x[spikes] += 12.0
+    return x
+
+
+def _ens_same(tout, jout, teng, jeng):
+    """Bitmask, vote and k exact; hst / teda-q scores and aux words
+    exact; moment scores within rtol / atol 5e-3 and moment aux rows
+    within 1e-4 (the reference sums by blocks, the port row by row)."""
+    assert tout["ecc"] is tout["det_flags"]
+    for key in ("det_flags", "outlier"):
+        np.testing.assert_array_equal(tout[key].numpy(),
+                                      np.asarray(jout[key]), err_msg=key)
+    ts, js = tout["scores"].numpy(), np.asarray(jout["scores"])
+    for d, name in enumerate(ALL5):
+        if name in MOMENT:
+            np.testing.assert_allclose(ts[d], js[d], rtol=5e-3, atol=5e-3,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(ts[d].view(np.int32),
+                                          js[d].view(np.int32), name)
+    for f in ("k", "active"):
+        np.testing.assert_array_equal(getattr(teng.state, f).numpy(),
+                                      np.asarray(getattr(jeng.state, f)))
+    spec = teng.backend.state_spec
+    ta = teng.state.aux.numpy()
+    ja = np.asarray(jeng.state.aux)
+    for region in spec.regions:
+        sl = spec.slc(region.name)
+        if region.name.startswith("moment:"):
+            np.testing.assert_allclose(ta[sl], ja[sl], rtol=1e-4, atol=1e-4)
+        else:
+            np.testing.assert_array_equal(ta[sl].view(np.int32),
+                                          ja[sl].view(np.int32),
+                                          region.name)
+    for f in ("mean", "var"):
+        np.testing.assert_allclose(getattr(teng.state, f).numpy(),
+                                   np.asarray(getattr(jeng.state, f)),
+                                   rtol=1e-4, atol=1e-4)
+    for slot in range(teng.capacity):
+        a, b = teng.detector_config(slot), jeng.detector_config(slot)
+        assert a["detectors"] == b["detectors"]
+        np.testing.assert_array_equal(a["weights"], b["weights"])
+        assert a["threshold"] == b["threshold"]
+
+
+def test_ensemble_engine_matches_jax_through_churn():
+    """attach(detectors=) / set_detectors / detach churn, per-slot m,
+    ragged and subset calls: the port's ensemble engine equals the
+    JAX engine call by call."""
+    teng, jeng = _ens_engines()
+    rng = np.random.default_rng(20)
+    flagged = 0
+    for i in range(6):
+        x = _spiky(16, C, seed=30 + i)
+        vl, active = None, None
+        for e in (teng, jeng):
+            if i == 0:
+                e.set_m([1, 3, 5], [2.0, 2.0, 4.0])
+                e.set_detectors([2, 6], detectors=("rde",), vote="any")
+            if i == 1:
+                e.detach([4, 7])
+                e.set_detectors([8, 9], detectors=("hst", "teda-q"),
+                                vote="all")
+                e.reset([10])
+            if i == 2:
+                e.attach([7], m=2.0, detectors=("zscore", "teda"),
+                         vote=0.5)
+            if i == 4:
+                e.set_detectors(None, vote="any")
+                e.detach([2])
+                e.attach([4])
+        if i == 1:
+            vl = rng.integers(0, 17, size=C).astype(np.int32)
+            vl[:2] = [0, 16]
+        if i == 3:
+            active = [0, 2, 3, 7, 9, 11]
+        if i == 5:
+            vl = 5
+        tout = teng.process(x, active=active, valid_lens=vl)
+        jout = jeng.process(x, active=active, valid_lens=vl)
+        _ens_same(tout, jout, teng, jeng)
+        flagged += int(tout["det_flags"].ne(0).sum())
+        if i == 2:
+            assert teng.detector_config(7)["detectors"] == ("teda",
+                                                            "zscore")
+    assert flagged > 0
+    assert teng.detector_config(8)["detectors"] == ALL5
+
+
+def test_ensemble_load_state_hands_off_mid_stream():
+    """A live JAX ensemble engine's state — the aux block as its int32
+    view, the per-slot weights and thresholds and m — continues in the
+    port exactly where the reference continues."""
+    teng, jeng = _ens_engines()
+    jeng.set_m([0, 5], [2.0, 2.0])
+    jeng.set_detectors([3], detectors=("hst", "zscore"), vote="any")
+    jeng.detach([6])
+    for lo in (0, 16):
+        x = _spiky(16, C, seed=40 + lo)
+        jeng.process(x, valid_lens=(np.arange(C) + lo) % 17)
+    st = jeng.state
+    teng.load_state(tuple(np.asarray(v) for v in
+                          (st.k, st.mean, st.var, st.active))
+                    + (np.asarray(st.aux).view(np.int32),),
+                    m=jeng.slot_m, weights=jeng._det_w,
+                    thresholds=jeng._det_thr)
+    for lo in (32, 48):
+        x = _spiky(16, C, seed=40 + lo)
+        _ens_same(teng.process(x), jeng.process(x), teng, jeng)
+
+
+def test_ensemble_teda_lane_equals_cuda_backend():
+    """A teda-only ensemble engine flags like the "cuda" backend on the
+    same stream, with the first chunk's eccentricity bit-identical
+    (later chunks carry mean rather than sum on the "cuda" side)."""
+    x = _spiky(48, C, seed=50)
+    ens = TEngine(C, "ensemble", device="cpu", detectors=("teda",))
+    cud = TEngine(C, "cuda", device="cpu")
+    flagged = 0
+    for i, lo in enumerate(range(0, 48, 16)):
+        oe, oc = ens.process(x[lo:lo + 16]), cud.process(x[lo:lo + 16])
+        assert torch.equal(oe["outlier"], oc["outlier"])
+        flagged += int(oe["outlier"].sum())
+        assert torch.equal(oe["det_flags"] == 1, oc["outlier"])
+        if i == 0:
+            assert torch.equal(oe["scores"][0], oc["ecc"])
+        else:
+            np.testing.assert_allclose(oe["scores"][0], oc["ecc"],
+                                       rtol=RTOL, atol=ATOL)
+    assert flagged > 0
+
+
+def test_ensemble_engine_device_rows_and_guards(monkeypatch):
+    eng = TEngine(4, "ensemble", device="cpu", detectors=ALL5,
+                  fmt=TQ(*SPEC))
+    sel, thr = eng._detector_rows()
+    assert eng._detector_rows()[0] is sel  # cached until a slot call
+    eng.set_detectors([1], detectors=("rde",))
+    sel2, thr2 = eng._detector_rows()
+    assert sel2 is not sel
+    assert sel2[:, 1].tolist() == [0.0, 1.0, 0.0, 0.0, 0.0]
+    assert float(thr2[1]) == 0.5
+    with pytest.raises(ValueError, match="subset"):
+        eng.set_detectors([1], detectors=("iforest",))
+    with pytest.raises(ValueError, match="vote"):
+        eng.set_detectors([1], vote="plurality")
+    with pytest.raises(ValueError, match=r"arrays must be \(k, mean"):
+        eng.load_state((np.zeros(4),) * 4)
+    with pytest.raises(ValueError, match="state.aux"):
+        eng.load_state((np.zeros(4),) * 4 + (np.zeros((3, 4), np.int32),))
+    scan = TEngine(2, "scan", device="cpu")
+    for call in (lambda: scan.set_detectors([0], detectors=("rde",)),
+                 lambda: scan.detector_config(0),
+                 lambda: scan.load_state((np.zeros(2),) * 4,
+                                         weights=np.ones((3, 2)))):
+        with pytest.raises(ValueError, match="detector"):
+            call()
+    with pytest.raises(ValueError, match="detector"):
+        scan.detach([1])
+        scan.attach([1], detectors=("rde",))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TEngine(4, "ensemble", detectors=ALL5, fmt=TQ(*SPEC))
+
+
+def test_ensemble_uniform_leg_gates_inactive_slots():
+    """engine_process without valid_lens: inactive slots keep their
+    state words and report no bits, votes or scores — the same result
+    as the ragged leg with vlen = 0 on them."""
+    from repro_torch.engine import engine_init, engine_process
+    be = get_backend("ensemble", detectors=ALL5, fmt=TQ(*SPEC), window=4,
+                     m=2.0)
+    st = engine_init(6, aux_rows=be.aux_rows)
+    act = torch.tensor([True, False, True, True, False, True])
+    st = st._replace(active=act)
+    x = torch.from_numpy(_spiky(32, 6, seed=60))
+    new, out = engine_process(st, x, be)
+    assert not out["ecc"][:, ~act].any()
+    assert not out["outlier"][:, ~act].any()
+    assert not out["scores"][:, :, ~act].any()
+    assert out["ecc"][:, act].any()
+    assert torch.equal(new.k, torch.where(act, 32.0, 0.0))
+    assert torch.equal(new.aux[:, ~act].view(torch.int32),
+                       st.aux[:, ~act].view(torch.int32))
+    new2, out2 = engine_process(st, x, be,
+                                valid_lens=torch.where(act, 32, 0))
+    for key in ("ecc", "outlier", "scores"):
+        assert torch.equal(out[key], out2[key]), key
+    assert torch.equal(new.aux.view(torch.int32),
+                       new2.aux.view(torch.int32))

@@ -24,8 +24,9 @@ import numpy as np
 import repro_torch
 from repro_torch.engine import StreamEngine
 from repro_torch.fixedpoint import QFormat
-for backend in ("scan", "cuda", "cuda-q"):
-    eng = StreamEngine(8, backend, device="cpu", fmt=QFormat(32, 20))
+for backend in ("scan", "cuda", "cuda-q", "ensemble"):
+    eng = StreamEngine(8, backend, device="cpu", fmt=QFormat(32, 20),
+                       detectors=("teda", "rde", "zscore", "hst", "teda-q"))
     out = eng.process(np.ones((4, 8), np.float32))
     assert out["ecc"].shape == (4, 8)
 bad = sorted(m for m in sys.modules
