@@ -2,13 +2,21 @@
 """Drive the PyTorch/CUDA port of the TEDA engine on one GPU and check it.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --ensemble-times [--src DIR]
 
 Run from the repository root on a machine with a CUDA device and the
 CUDA toolkit.  The phases, each of which raises on failure:
 
   1. device  — the card's name and power limit, torch and CUDA versions;
   2. build   — the CUDA kernels compiled from `src/repro_torch/csrc/`
-               with nvcc for sm_90a (`-Xptxas -v` output printed);
+               with nvcc for sm_90a (`-Xptxas -v` output printed, and
+               each kernel's static SASS instruction count and loop
+               bodies from cuobjdump where the toolkit has it);
+     divider — the Q divider every Q kernel inlines (`q_fast_div_mag`,
+               launched alone through `csrc/qdiv_probe.cu`) against the
+               plain `fast_div_mag` on the card, bit-exact, over edge
+               sets, remainders at 0, 1, d - 1 and half-way, and 10^7
+               random pairs per format and shift;
   3. kernels — each kernel against its plain PyTorch version on the card
                at C = 65,536 channels x T = 512 rows, from a carried
                state (k0 up to ~10^4) with a ragged vlen and a mixed
@@ -20,10 +28,13 @@ CUDA toolkit.  The phases, each of which raises on failure:
                vlen, mixed m, per-channel member selections and vote
                thresholds and NaN samples: bits, vote, k, all five
                score streams and the aux block as int32 words
-               bit-exact, the scores' largest difference printed.
-               Kernel and
-               plain times from CUDA events, device time from the
-               profiler;
+               bit-exact, the scores' largest difference printed; the
+               same at C = 1,000 (not a multiple of the block) x T = 37
+               (a partial tile) and at W = 300 (the block halved), with
+               and without teda-q (the block with and without its Q
+               warps).  Kernel and plain times from CUDA events (the
+               ensemble's with ragged and with uniform vlen), device
+               time from the profiler;
   4. engine  — StreamEngine(4096, "cuda"), (4096, "cuda-q") and
                (4096, "ensemble") on the card against the same engines
                on the CPU through uneven chunks, ragged calls, per-slot
@@ -38,6 +49,12 @@ The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi prints them, and {"ok": true, "device": ...}.
 It exits non-zero without a result when CUDA is unavailable or the
 package is not beside it.
+
+`--ensemble-times` runs only phases 1 and 2 and then times the
+ensemble kernel alone on the main path's inputs for several member
+sets (`ensemble_times`), for the package of the tree at DIR (default:
+this one): run it on a `git archive` of another commit to compare
+kernels in one call.
 """
 from __future__ import annotations
 
@@ -59,8 +76,14 @@ RTOL, ATOL, BAND = 5e-4, 1e-5, 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # the f32 rate outside the tensor cores; the published table has no
 # int32 rate, so the Q kernel's integer operations are counted against
-# it too (an optimistic, hence lower, bound)
+# it too (an optimistic, hence lower, bound: an SM has 64 INT32 lanes
+# against 128 FP32 lanes, about 16.7e12 int32 operations/s)
 ALU_OPS_PER_S = 67e12
+# an SM issues one warp instruction per clock in each of its four
+# sub-partitions and has 64 INT32 lanes: 132 SMs at the 1.98 GHz boost
+# clock
+INSTR_PER_S = 132 * 128 * 1.98e9
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 class SmokeFailure(RuntimeError):
@@ -101,11 +124,27 @@ def float_ops_per_sample():
 
 
 def q_ops_per_sample(frac_len):
-    # six dividers (one integer divide + ~10 sign/remainder/saturation
-    # ops each), FL restoring steps of ~5 ops for the two Q/Q ones,
-    # three widening multiplies (~12), three saturating adds and one
-    # subtract (~4), counter, shift and compares (~10)
+    # the work of the bit-serial divider's fast image, kept as the count
+    # so that bounds compare across kernel designs: six dividers (one
+    # integer divide + ~10 sign/remainder/saturation ops each), FL
+    # restoring steps of ~5 ops for the two Q/Q ones, three widening
+    # multiplies (~12), three saturating adds and one subtract (~4),
+    # counter, shift and compares (~10)
     return 6 * 11 + 2 * 5 * frac_len + 3 * 12 + 4 * 4 + 10
+
+
+def q_recip_ops_per_sample():
+    # the Q row as `q_teda_tile` runs it since the reciprocal divider,
+    # counted by hand from csrc/qformat.cuh (about +-20%): two
+    # reciprocals (I2F.F64, DRCP's ~8-instruction sequence, DMUL: ~11
+    # each) and the halved one for 2k (~5); six dividers (~20 each: the
+    # 64-bit shift, U64->F64, DMUL, the saturation compare, F2I, the
+    # remainder multiply-subtract, one correction step, the rounding and
+    # the qmax select) with their sign and magnitude handling (~6 each);
+    # three saturating multiplies (~22 each); three saturating adds and
+    # one subtract (~7 each); counter, guards, flag, load and stores
+    # (~15)
+    return 2 * 11 + 5 + 6 * (20 + 6) + 3 * 22 + 4 * 7 + 15
 
 
 def ensemble_ops_per_sample(frac_len):
@@ -151,7 +190,64 @@ def phase_build():
     log(f"[build] nvcc sm_90a -> {info['path']} in {info['seconds']:.2f} s")
     for ln in ptxas:
         log(f"[build]   {ln.strip()}")
+    log_sass("build", _build.LIB_PATH)
     return info["seconds"]
+
+
+def log_sass(tag, path):
+    """Each kernel's static SASS instruction count and loop bodies."""
+    from repro_torch.kernels import _build
+    if not hasattr(_build, "sass_stats"):  # an older tree's build module
+        log(f"[{tag}] sass: the package has no sass_stats (not measured)")
+        return
+    stats = _build.sass_stats(path)
+    if not stats:
+        log(f"[{tag}] sass: cuobjdump not found (not measured)")
+    for name, st in stats.items():
+        log(f"[{tag}] sass {name}: {st['instructions']} instructions, "
+            f"loop bodies {st['loops']}")
+
+
+def phase_divider(seed):
+    """The kernels' divider alone against fast_div_mag, bit-exact."""
+    from repro_torch.kernels import qdiv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    rng = np.random.default_rng(seed + 5)
+    n_rand, total = 10_000_000, 0
+    t0 = time.perf_counter()
+    for wl, fl in ((32, 16), (32, 20), (32, 30), (16, 8)):
+        qmax = (1 << (wl - 1)) - 1
+        edges = torch.tensor([0, 1, 2, qmax, qmax + 1, 2**31 - 1, 2**31],
+                             device=dev)
+        en, ed = (a.reshape(-1) for a in torch.meshgrid(edges, edges,
+                                                          indexing="ij"))
+        for shift in sorted({0, fl}):
+            def mags():  # log-uniform magnitudes in [0, 2^31]
+                v = torch.randint(0, 2**31 + 1, (n_rand,), generator=gen,
+                                  device=dev)
+                return v >> torch.randint(0, 32, (n_rand,), generator=gen,
+                                          device=dev)
+            hn, hd = qdiv.half_way_pairs(rng, shift, 1000)
+            rn, rd = qdiv.remainder_edge_pairs(rng, shift, 1000)
+            n = torch.cat([en, torch.from_numpy(np.concatenate([hn, rn]))
+                           .to(dev), mags()])
+            d = torch.cat([ed, torch.from_numpy(np.concatenate([hd, rd]))
+                           .to(dev), mags()])
+            for rounding in ("round", "trunc"):
+                got = qdiv.div_mag_call(n, d, shift, rounding, qmax)
+                want = qdiv.fast_div_mag(n, d, shift, rounding, qmax)
+                bad = int((got != want).sum())
+                check(bad == 0, f"divider Q{wl}.{fl} shift {shift} "
+                      f"{rounding}: {bad} quotients differ from "
+                      "fast_div_mag")
+                total += n.numel()
+    torch.cuda.synchronize()
+    log(f"[divider] q_fast_div_mag on the card equals fast_div_mag in "
+        f"{total} quotients (Q32.16, Q32.20, Q32.30, Q16.8; shift 0 and "
+        f"FL; both roundings; edges, remainder edges, random) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def _stream_inputs(rng, c, t_len):
@@ -300,6 +396,11 @@ def phase_kernels(seed):
     log(f"[kernels] teda_q_scan verdict {q_ms:.4f} ms (full "
         f"{q_full_ms:.4f} ms), plain {q_plain_ms:.2f} ms, bound "
         f"{q_bound[0]:.4f} ms ({q_bound[1]})")
+    ops = t_len * c * q_recip_ops_per_sample()
+    log(f"[kernels] teda_q_scan by its own count, {q_recip_ops_per_sample()}"
+        f" operations per sample: {ops / INSTR_PER_S * 1e3:.4f} ms at the "
+        f"issue rate, {ops / INT32_OPS_PER_S * 1e3:.4f} ms at the INT32 "
+        f"rate")
     records["teda_scan"] = {
         "name": "teda_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/teda_scan.cu",
@@ -383,6 +484,58 @@ def _ensemble_inputs(rng, c, t_len, dev):
     return put(x), put(vl), put(m), put(thr), put(sel)
 
 
+def _ensemble_equal(tag, kern, plain, detectors):
+    """Every output of the kernel equals the plain version's, aux and
+    scores as int32 words; returns the scores' largest difference."""
+    for name, a, b in zip(("bits", "vote", "fk", "aux"), kern, plain):
+        if name == "aux":
+            a, b = _words(a), _words(b)
+        check(torch.equal(a, b), f"ensemble {tag} {name}: kernel and plain "
+              "differ")
+    score_err = 0.0
+    for d, name in enumerate(detectors):
+        a, b = kern[4][d], plain[4][d]
+        err = _score_diff(a, b)
+        score_err = max(score_err, err)
+        check(torch.equal(_words(a), _words(b)),
+              f"ensemble {tag} {name} scores: kernel and plain differ "
+              f"(largest difference {err!r})")
+    return score_err
+
+
+def _ensemble_edges(rng, dev, fmt):
+    """The kernel against the plain version where a block has
+    out-of-range channels (C = 1,000), a partial tile (T = 37, 21), a
+    halved block (W = 300: the zscore ring outgrows 227 KB at 128
+    channels), with its Q warps (teda-q alone, all five) and without
+    them."""
+    from repro_torch.detectors.spec import ensemble_spec
+    from repro_torch.kernels import ensemble_scan as ek
+
+    floats = ("teda", "rde", "zscore", "hst")
+    cases = [(1000, 37, 8, ALL5), (300, 21, 300, ALL5),
+             (1000, 37, 8, ("teda-q",)), (1000, 37, 8, ("rde", "hst")),
+             (1000, 37, 8, floats), (300, 21, 300, floats)]
+    for c, t_len, w, dets in cases:
+        spec = ensemble_spec(dets, w)
+        kw = dict(detectors=dets, window=w, fmt=fmt if "teda-q" in dets
+                  else None)
+        x, vl, m, thr, sel = _ensemble_inputs(rng, c, 3 * t_len, dev)
+        pick = [ALL5.index(d) for d in dets]
+        sel = sel[pick].contiguous()
+        zeros = torch.zeros(c, device=dev)
+        warm = ek.ensemble_scan_plain(x, vl, zeros, m, thr, sel,
+                                      spec.init_aux(c, device=dev), **kw)
+        x, vl, _, _, _ = _ensemble_inputs(rng, c, t_len, dev)
+        args = (x, vl, warm[2], m, thr, sel, warm[3])
+        plain = ek.ensemble_scan_plain(*args, **kw)
+        _ensemble_equal(f"C={c} T={t_len} W={w} {dets}",
+                        ek.ensemble_scan_call(*args, **kw), plain, dets)
+    log(f"[kernels] ensemble_scan bit-exact with the plain version at "
+        f"(C, T, W, members) = "
+        f"{[(c, t, w, len(d)) for c, t, w, d in cases]}")
+
+
 def phase_ensemble_kernel(seed):
     """The ensemble kernel against its plain version at full width."""
     from repro_torch.detectors.spec import ensemble_spec
@@ -414,30 +567,27 @@ def phase_ensemble_kernel(seed):
     kern = ek.ensemble_scan_call(*args, **kw)
     plain = ek.ensemble_scan_plain(*args, **kw)
     torch.cuda.synchronize()
-    for name, a, b in zip(("bits", "vote", "fk", "aux"), kern, plain):
-        if name == "aux":
-            a, b = _words(a), _words(b)
-        check(torch.equal(a, b), f"ensemble {name}: kernel and plain differ")
-    score_err = 0.0
-    for d, name in enumerate(ALL5):
-        a, b = kern[4][d], plain[4][d]
-        err = _score_diff(a, b)
-        score_err = max(score_err, err)
-        check(torch.equal(_words(a), _words(b)),
-              f"ensemble {name} scores: kernel and plain differ (largest "
-              f"difference {err!r})")
+    score_err = _ensemble_equal("C=65536", kern, plain, ALL5)
     bits = kern[0]
-    log(f"[kernels] ensemble_scan: bits, vote, k, all five score streams "
-        f"and aux words bit-exact; scores' largest difference "
-        f"{score_err!r}; {int(bits.ne(0).sum())} flagged samples, "
-        f"{int(kern[1].sum())} votes, per member "
+    log(f"[kernels] ensemble_scan: bits, vote, "
+        f"k, all five score streams and aux words bit-exact; scores' "
+        f"largest difference {score_err!r}; {int(bits.ne(0).sum())} "
+        f"flagged samples, {int(kern[1].sum())} votes, per member "
         f"{[int(((bits >> d) & 1).sum()) for d in range(len(ALL5))]}")
+    _ensemble_edges(rng, dev, fmt)
 
-    ms = cuda_ms(lambda: ek.ensemble_scan_call(*args, **kw), reps=20)
+    # ragged and uniform vlen on the same inputs, in one call on one card
+    uni = (x, torch.full_like(vl, t_len)) + args[2:]
+    times = {inputs: cuda_ms(lambda: ek.ensemble_scan_call(*a, **kw),
+                             reps=20)
+             for inputs, a in (("ragged", args), ("uniform", uni))}
+    ms = times["ragged"]
     dev_ms = profiled_device_ms(lambda: ek.ensemble_scan_call(*args, **kw),
                                 5, "ensemble_scan")
     plain_ms = cuda_ms(lambda: ek.ensemble_scan_plain(*args, **kw), reps=2,
                        warmup=1)
+    log("[kernels] ensemble_scan by events (ms per launch): " + ", ".join(
+        f"{i} {v:.4f}" for i, v in times.items()))
     # x in; bits (4 B), vote (1 B) and K scores out per sample; the aux
     # block in and out, the sel rows and the k0/m/thr/vlen/fk rows
     bound = bound_ms(t_len, c, 4, 4 + 1 + 4 * len(ALL5),
@@ -453,6 +603,60 @@ def phase_ensemble_kernel(seed):
         "replaces": "src/repro/kernels/ensemble_scan.py:183",
         "max_abs_err": score_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}}
+
+
+MEMBER_SETS = (ALL5, ("teda", "rde", "zscore", "hst"), ("teda",),
+               ("rde", "zscore"), ("hst",), ("teda-q",))
+
+
+def ensemble_times(seed, smi, reps=20):
+    """ensemble_scan alone on the main path's inputs, for each member set
+    of MEMBER_SETS: C = 65,536, T = 512, phase 5's spiked stream (no
+    NaN), uniform vlen = T, every member selected, majority vote, m = 3,
+    from the state one chunk leaves.  Milliseconds per launch by CUDA
+    events over `reps` launches, one line per set.  A package whose
+    wrapper still takes `fused=` (an earlier tree's one-thread-per-channel
+    design, kept beside the Q warps for measurement) is timed both ways;
+    the package beside this script has one design per member set."""
+    import inspect
+
+    from repro_torch.detectors import vote_threshold
+    from repro_torch.detectors.spec import ensemble_spec
+    from repro_torch.fixedpoint import QFormat
+    from repro_torch.kernels import ensemble_scan as ek
+
+    dev = torch.device("cuda")
+    c, t_len = C_WIDE, T_CHUNK
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    mu = torch.randn(c, generator=gen, device=dev) * 2.0
+    sigma = torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5
+    chunks = []
+    for _ in range(2):
+        ch = mu + sigma * torch.randn((t_len, c), generator=gen, device=dev)
+        spikes = torch.rand((t_len, c), generator=gen, device=dev) < 0.002
+        chunks.append(torch.where(spikes, ch + 12.0 * sigma, ch))
+    vl = torch.full((c,), t_len, dtype=torch.int32, device=dev)
+    m = torch.full((c,), 3.0, device=dev)
+    designs = [("one design", {})]
+    if "fused" in inspect.signature(ek.ensemble_scan_call).parameters:
+        designs = [("split", {"fused": False}), ("fused", {"fused": True})]
+    log(f"[times] ensemble_scan from {ek.__file__} on {smi}")
+    for dets in MEMBER_SETS:
+        k = len(dets)
+        kw = dict(detectors=dets, window=WINDOW,
+                  fmt=QFormat(32, 20) if "teda-q" in dets else None)
+        sel = torch.ones((k, c), device=dev)
+        thr = torch.full((c,), vote_threshold("majority", np.ones(k)),
+                         device=dev)
+        warm = ek.ensemble_scan_call(
+            chunks[0], vl, torch.zeros(c, device=dev), m, thr, sel,
+            ensemble_spec(dets, WINDOW).init_aux(c, device=dev), **kw)
+        args = (chunks[1], vl, warm[2], m, thr, sel, warm[3])
+        for design, extra in designs:
+            ms = cuda_ms(lambda: ek.ensemble_scan_call(*args, **kw, **extra),
+                         reps=reps)
+            log(f"[times] {'+'.join(dets)} ({design}): {ms:.4f} ms per "
+                "launch")
 
 
 def _engine_compare(tag, q, gpu_out, cpu_out, gpu_eng, cpu_eng, vl,
@@ -874,23 +1078,32 @@ def profile_window(backend, eng, feed, warmup=2):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ensemble-times", action="store_true",
+                    help="time the ensemble kernel alone per member set")
+    ap.add_argument("--src", type=Path, default=ROOT,
+                    help="the tree whose package --ensemble-times runs")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: src/repro_torch not found beside this script",
+    src = (args.src if args.ensemble_times else ROOT).resolve() / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
+    if args.ensemble_times:
+        ensemble_times(args.seed, smi)
+        return 0
+    phase_divider(args.seed)
     records = phase_kernels(args.seed)
     records.update(phase_ensemble_kernel(args.seed))
     torch.cuda.empty_cache()

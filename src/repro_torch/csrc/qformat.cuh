@@ -78,103 +78,164 @@ __device__ __forceinline__ int32_t q_sat_mul(const QFmt& f, int32_t a,
   return neg ? -qi : qi;
 }
 
-// floor((n << shift) / d) on 32-bit magnitudes, the bits of the
-// bit-serial restoring divider: one integer divide for the numerator's
-// 31 bits, `shift` explicit restoring steps on the remainder, then
-// round-half-up, lost-bit tracking and the d == 0 saturation.  The
-// d == 0 guard comes before the divide: integer division by zero does
-// not trap on the GPU, it returns garbage.
+// The divider.  The bit-serial restoring divider's bits are, for
+// d > 0, min(Q + h, qmax) with Q = floor((n << shift) / d), R the
+// remainder and h = round && 2R >= d (its lost-bit flag is set exactly
+// when Q >= 2^32, and then Q + h > qmax too); d == 0 gives qmax.  Here
+// Q comes from a reciprocal estimate and one exact correction step:
+//   rcp = rn(rn(1 / d) * (1 - 2^-40)), qe = rn(rn(N) * rcp) with
+//   N = n << shift (<= 2^61): three roundings of at most 2^-53 each
+//   and the bias give (N / d)(1 - 2^-39) < qe <= N / d;
+//   sat  qe >= qmax + 2: then Q >= qmax + 1 and the result is qmax;
+//   else N / d < qmax + 3 <= 2^31 + 2, so N / d - qe < 1 and
+//        q = trunc(qe) is Q - 1 or Q; the remainder N - q d lies in
+//        [0, 2d), below 2^32, so the low 32 bits of N - q * d are
+//        exact, and one step up (r >= d) gives Q and R.
+// Only correctly rounded IEEE double operations feed the estimate (no
+// fast-math), so a float64 mirror reproduces it bit for bit
+// (`repro_torch/kernels/qdiv.py::recip_div_mag`).  The caller passes
+// `rcp` = q_recip(d), so that the dividers by one k share it.
+__device__ __forceinline__ double q_recip(uint32_t d) {
+  return __dmul_rn(__drcp_rn((double)(d == 0u ? 1u : d)),
+                   1.0 - 0x1p-40);
+}
+
+__device__ __forceinline__ uint32_t q_recip_div_mag(uint32_t n, uint32_t d,
+                                                    int shift, int round,
+                                                    uint32_t qmax,
+                                                    double rcp) {
+  const uint64_t N = (uint64_t)n << shift;
+  const double qe = __dmul_rn(
+      shift == 0 ? __uint2double_rn(n) : __ull2double_rn(N), rcp);
+  const bool sat = d == 0u || qe >= (double)qmax + 2.0;
+  uint32_t q = __double2uint_rz(qe);  // saturates; only when sat
+  uint32_t r = (uint32_t)N - q * d;
+  if (r >= d) {
+    q += 1u;
+    r -= d;
+  }
+  const uint32_t qh = q + ((round && r >= d - r) ? 1u : 0u);
+  return (sat || qh > qmax) ? qmax : qh;
+}
+
+// floor((n << shift) / d) on 32-bit magnitudes (n, d <= 2^31, shift
+// 0..30), rounded and saturated: the bits of the bit-serial divider.
 __device__ __forceinline__ uint32_t q_fast_div_mag(uint32_t n, uint32_t d,
                                                    int shift, int round,
                                                    uint32_t qmax) {
-  const bool dz = d == 0u;
-  const uint32_t ds = dz ? 1u : d;
-  uint32_t q = n / ds;
-  uint32_t r = n - q * ds;
-  uint32_t lost = 0u;
-  for (int i = 0; i < shift; ++i) {
-    lost |= q >> 31;
-    r <<= 1;  // r < ds <= 2^31: no wrap
-    const bool ge = r >= ds;
-    q = (q << 1) | (ge ? 1u : 0u);
-    if (ge) r -= ds;
-  }
-  if (round) {
-    const bool half_up = r >= (ds >> 1) + (ds & 1u);
-    const uint32_t q2 = q + (half_up ? 1u : 0u);
-    lost |= (q2 < q) ? 1u : 0u;
-    q = q2;
-  }
-  return (dz || lost != 0u || q > qmax) ? qmax : q;
+  return q_recip_div_mag(n, d, shift, round, qmax, q_recip(d));
 }
 
-// Saturating Q / Q -> Q, bit-equal to the reference's div_qq.
+// Saturating Q / Q -> Q, bit-equal to the reference's div_qq; `rcp` is
+// q_recip(|den|).
+__device__ __forceinline__ int32_t q_div_qq_r(const QFmt& f, int32_t num,
+                                              int32_t den, double rcp) {
+  const bool neg = (num < 0) != (den < 0);
+  const int32_t q = (int32_t)q_recip_div_mag(q_mag(num), q_mag(den),
+                                             f.frac_len, f.round,
+                                             (uint32_t)f.qmax, rcp);
+  return neg ? -q : q;
+}
+
+// Saturating Q / int -> Q, bit-equal to the reference's div_qi; `rcp`
+// is q_recip(|k|).
+__device__ __forceinline__ int32_t q_div_qi_r(const QFmt& f, int32_t num,
+                                              int32_t k, double rcp) {
+  const bool neg = (num < 0) != (k < 0);
+  const int32_t q = (int32_t)q_recip_div_mag(q_mag(num), q_mag(k), 0,
+                                             f.round, (uint32_t)f.qmax, rcp);
+  return neg ? -q : q;
+}
+
 __device__ __forceinline__ int32_t q_fast_div_qq(const QFmt& f, int32_t num,
                                                  int32_t den) {
-  const bool neg = (num < 0) != (den < 0);
-  const int32_t q = (int32_t)q_fast_div_mag(q_mag(num), q_mag(den),
-                                            f.frac_len, f.round,
-                                            (uint32_t)f.qmax);
-  return neg ? -q : q;
+  return q_div_qq_r(f, num, den, q_recip(q_mag(den)));
 }
 
-// Saturating Q / int -> Q, bit-equal to the reference's div_qi.
 __device__ __forceinline__ int32_t q_fast_div_qi(const QFmt& f, int32_t num,
                                                  int32_t k) {
-  const bool neg = (num < 0) != (k < 0);
-  const int32_t q = (int32_t)q_fast_div_mag(q_mag(num), q_mag(k), 0,
-                                            f.round, (uint32_t)f.qmax);
-  return neg ? -q : q;
+  return q_div_qi_r(f, num, k, q_recip(q_mag(k)));
+}
+
+// The reciprocal of 2k from that of k: q_recip(2x) = q_recip(x) / 2
+// exactly (each rounding scales by the power of two, no subnormals),
+// unless the int32 2k wrapped.
+__device__ __forceinline__ int32_t q_twice(int32_t k) {  // int32 2k, wrapping
+  return (int32_t)(2u * (uint32_t)k);
+}
+
+__device__ __forceinline__ double q_recip_2k(int32_t k, double rcp_k) {
+  const uint32_t d2 = q_mag(q_twice(k));
+  double r = __dmul_rn(rcp_k, 0.5);
+  if (d2 != 2u * q_mag(k)) r = q_recip(d2);
+  return r;
 }
 
 // Float -> Q, bit-equal to QFormat.quantize: the float32 product with
 // the scale, round half to even, NaN -> 0, then a saturating convert
-// (infinities included) into [-qmax, qmax].
+// (infinities included) into [-qmax, qmax].  v is integral, so the
+// truncating convert is exact below 2^31 and saturates above it.
 __device__ __forceinline__ int32_t q_quantize_f32(const QFmt& f, float x) {
   const float v = rintf(__fmul_rn(x, (float)(1u << f.frac_len)));
   if (v != v) return 0;
-  const double d = (double)v;
-  if (d >= (double)f.qmax) return f.qmax;
-  if (d <= -(double)f.qmax) return -f.qmax;
-  return (int32_t)d;
+  return min(max(__float2int_rz(v), -f.qmax), f.qmax);
 }
 
-// One row of univariate Q-format TEDA, the reference's `_q_step_u`
-// (eqs (1)-(6)) at instant k from the carried mean and var:
-//   rk = (k-1)/k (Q/Q), inv = 1/k, thr = msq1/(2k), xk = x/k (Q/int)
-//   mean_n = sat(rk*mean + xk)         (k = 1 gives rk = 0, x/1 = x)
-//   d2 = (x - mean_n)^2, e = d2/k (0 at k = 1)
-//   var_n = sat(rk*var + e)
-//   ecc = inv + (d2/var_n)/k (var_n > 0 guard)
-//   outlier = (ecc >> 1) > thr && k >= 2
-// The caller gates the outlier on validity and freezes its carries.
-struct QTedaRow {
-  int32_t mean;
-  int32_t var;
-  int32_t ecc;
-  bool outlier;
-};
-
-__device__ __forceinline__ QTedaRow q_teda_row(const QFmt& f, int32_t k,
-                                               int32_t xv, int32_t mean,
-                                               int32_t var, int32_t msq1) {
+// R rows of univariate Q-format TEDA, the reference's `_q_step_u`
+// (eqs (1)-(6)) at instants k1 .. k1 + R - 1 from the carried mean and
+// var, in the reference kernel's block passes
+// (src/repro/kernels/teda_q_scan.py), one shared reciprocal of k per
+// row for the dividers by k and 2k:
+//   1. rk = (k-1)/k (Q/Q), xk = x/k (Q/int);
+//   2. the mean chain mean_n = sat(rk*mean + xk) (k = 1: rk = 0, x/1 = x);
+//   3. d2 = (x - mean_n)^2, e = d2/k (0 at k = 1);
+//   4. the var chain var_n = sat(rk*var + e);
+//   5. inv = 1/k, thr = msq1/(2k), ecc = inv + (d2/var_n)/k (var_n > 0
+//      guard), outlier = (ecc >> 1) > thr && k >= 2.
+// Only the two chains carry from row to row; the dividers of a tile
+// issue back to back around them.  Rows r < n_valid advance mean and
+// var; the per-row outputs come from the unfrozen mean_n/var_n, and
+// the caller gates the outlier on validity.
+template <int R>
+__device__ __forceinline__ void q_teda_tile(
+    const QFmt& f, int32_t k1, int n_valid, const int32_t (&xv)[R],
+    int32_t msq1, int32_t& mean, int32_t& var, int32_t (&mean_n)[R],
+    int32_t (&var_n)[R], int32_t (&ecc)[R], bool (&outlier)[R]) {
+  int32_t rk[R], xk[R], d2[R];
+  double rcp[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {  // 1. the dividers the mean chain needs
+    const int32_t k = k1 + r;
+    rcp[r] = q_recip(q_mag(k));
+    rk[r] = q_div_qq_r(f, k - 1, k, rcp[r]);
+    xk[r] = q_div_qi_r(f, xv[r], k, rcp[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {  // 2. MEAN, eq (2)
+    mean_n[r] = q_sat_add(f, q_sat_mul(f, rk[r], mean), xk[r]);
+    if (r < n_valid) mean = mean_n[r];
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {  // 3. deviation and e = d2/k
+    const int32_t d = q_sat_sub(f, xv[r], mean_n[r]);
+    d2[r] = q_sat_mul(f, d, d);
+    xk[r] = (k1 + r <= 1) ? 0 : q_div_qi_r(f, d2[r], k1 + r, rcp[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {  // 4. VARIANCE, eq (3)
+    var_n[r] = q_sat_add(f, q_sat_mul(f, rk[r], var), xk[r]);
+    if (r < n_valid) var = var_n[r];
+  }
   const int32_t one = (int32_t)(1u << f.frac_len);
-  const int32_t rk = q_fast_div_qq(f, k - 1, k);
-  const int32_t inv = q_fast_div_qi(f, one, k);
-  const int32_t thr = q_fast_div_qi(f, msq1, 2 * k);
-  const int32_t xk = q_fast_div_qi(f, xv, k);
-  QTedaRow r;
-  // MEAN, eq (2)
-  r.mean = q_sat_add(f, q_sat_mul(f, rk, mean), xk);
-  // VARIANCE, eq (3)
-  const int32_t d = q_sat_sub(f, xv, r.mean);
-  const int32_t d2 = q_sat_mul(f, d, d);
-  const int32_t e = (k <= 1) ? 0 : q_fast_div_qi(f, d2, k);
-  r.var = q_sat_add(f, q_sat_mul(f, rk, var), e);
-  // ECCENTRICITY + OUTLIER, eqs (1), (5), (6)
-  const int32_t term =
-      r.var > 0 ? q_fast_div_qi(f, q_fast_div_qq(f, d2, r.var), k) : 0;
-  r.ecc = q_sat_add(f, inv, term);
-  r.outlier = ((r.ecc >> 1) > thr) && (k >= 2);
-  return r;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {  // 5. ECCENTRICITY + OUTLIER, (1)(5)(6)
+    const int32_t k = k1 + r;
+    const int32_t inv = q_div_qi_r(f, one, k, rcp[r]);
+    const int32_t thr = q_div_qi_r(f, msq1, q_twice(k), q_recip_2k(k, rcp[r]));
+    const bool pos = var_n[r] > 0;
+    const int32_t ratio = q_fast_div_qq(f, d2[r], pos ? var_n[r] : 1);
+    const int32_t term = pos ? q_div_qi_r(f, ratio, k, rcp[r]) : 0;
+    ecc[r] = q_sat_add(f, inv, term);
+    outlier[r] = ((ecc[r] >> 1) > thr) && (k >= 2);
+  }
 }

@@ -4,11 +4,13 @@
 // Replaces the JAX package's Pallas TPU kernel
 // src/repro/kernels/teda_q_scan.py::teda_q_scan_kernel.  That kernel
 // hoisted the seven dividers into whole-block vector passes and kept
-// two sequential multiply-add loops (mean, var) over banked rows; here
-// one thread walks its channel's rows in order and evaluates every
-// divider inline (`q_teda_row` in qformat.cuh).  Each row sees the same
-// inputs in the same order as the reference's per-row step
-// (`_q_step_u`), so the bits are the same:
+// two sequential multiply-add loops (mean, var) over banked rows.  Here
+// one thread walks its channel's rows in tiles of kRows rows held in
+// registers, and runs the same passes on each tile (`q_teda_tile` in
+// qformat.cuh): the counter and sample dividers, the mean chain, d2
+// and d2/k, the var chain, then ecc/outlier.  Each row sees the same
+// inputs as the reference's per-row step (`_q_step_u`), so the bits
+// are the same:
 //   k = k0 + t + 1
 //   rk = (k-1)/k (Q/Q), inv = 1/k, thr = msq1/(2k), xk = x/k (Q/int)
 //   mean_n = sat(rk*mean + xk)         (k = 1 gives rk = 0, x/1 = x)
@@ -18,14 +20,17 @@
 //   outlier = (ecc >> 1) > thr && k >= 2 && row < vlen
 // The carried mean/var advance only on valid rows; the per-row outputs
 // are computed from the unfrozen mean_n/var_n, as the reference banks
-// them.
+// them.  The tail tile past T computes on zeros and stores nothing;
+// its rows are invalid because vlen <= T (the wrapper clamps it).
 //
-// Bound on the card: operations.  A row costs six dividers (each one
-// 32-bit integer divide, which the GPU emulates in software, plus FL
-// restoring steps for the two Q/Q ones) and three widening multiplies;
-// the bytes are the same 9 B per sample as the float verdict contract.
-// One thread per channel under-fills the card at small C; time-parallel
-// designs are later work.
+// Bound on the card: integer operations.  A row costs six dividers
+// (each a float64 reciprocal estimate and one exact 32-bit correction
+// step; one reciprocal of k serves five of them) and three widening
+// multiplies; the bytes are the same 9 B per sample as the float
+// verdict contract.  Only the two saturating multiply-add chains carry
+// from row to row, so the dividers of a tile issue back to back and
+// overlap each other's latency.  One thread per channel under-fills
+// the card at small C; time-parallel designs are later work.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -35,22 +40,24 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kRows = 4;  // rows per tile, held in registers
 
 template <bool Full>
-__global__ void teda_q_scan_kernel(const int32_t* __restrict__ x,
-                                   const int32_t* __restrict__ msq1,
-                                   const int32_t* __restrict__ vlen,
-                                   const int32_t* __restrict__ k0,
-                                   const int32_t* __restrict__ mean0,
-                                   const int32_t* __restrict__ var0,
-                                   int32_t* __restrict__ mean_out,
-                                   int32_t* __restrict__ var_out,
-                                   int32_t* __restrict__ ecc_out,
-                                   uint8_t* __restrict__ outlier_out,
-                                   int32_t* __restrict__ fk,
-                                   int32_t* __restrict__ fmean,
-                                   int32_t* __restrict__ fvar, int64_t T,
-                                   int64_t C, QFmt f) {
+__global__ void __launch_bounds__(kThreads)
+teda_q_scan_kernel(const int32_t* __restrict__ x,
+                   const int32_t* __restrict__ msq1,
+                   const int32_t* __restrict__ vlen,
+                   const int32_t* __restrict__ k0,
+                   const int32_t* __restrict__ mean0,
+                   const int32_t* __restrict__ var0,
+                   int32_t* __restrict__ mean_out,
+                   int32_t* __restrict__ var_out,
+                   int32_t* __restrict__ ecc_out,
+                   uint8_t* __restrict__ outlier_out,
+                   int32_t* __restrict__ fk,
+                   int32_t* __restrict__ fmean,
+                   int32_t* __restrict__ fvar, int64_t T, int64_t C,
+                   QFmt f) {
   const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
   const int32_t kk0 = k0[c];
@@ -58,23 +65,34 @@ __global__ void teda_q_scan_kernel(const int32_t* __restrict__ x,
   const int32_t mq = msq1[c];
   int32_t mean = mean0[c];
   int32_t var = var0[c];
-  int32_t x_next = T > 0 ? x[c] : 0;
-  for (int64_t t = 0; t < T; ++t) {
-    const int64_t idx = t * C + c;
-    const int32_t xv = x_next;
-    if (t + 1 < T) x_next = x[idx + C];  // next row's load in flight
-    const bool valid = t < vl;
-    const int32_t k = kk0 + (int32_t)t + 1;
-    const QTedaRow q = q_teda_row(f, k, xv, mean, var, mq);
-    if (valid) {
-      mean = q.mean;
-      var = q.var;
+  int32_t x_next[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) x_next[r] = r < T ? x[r * C + c] : 0;
+  for (int64_t t0 = 0; t0 < T; t0 += kRows) {
+    int32_t xv[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      xv[r] = x_next[r];
+      const int64_t t = t0 + kRows + r;  // next tile's loads in flight
+      x_next[r] = t < T ? x[t * C + c] : 0;
     }
-    ecc_out[idx] = q.ecc;
-    outlier_out[idx] = (valid && q.outlier) ? 1 : 0;
-    if (Full) {
-      mean_out[idx] = q.mean;
-      var_out[idx] = q.var;
+    const int64_t left = (int64_t)vl - t0;
+    const int n_valid = left <= 0 ? 0 : (left >= kRows ? kRows : (int)left);
+    int32_t mn[kRows], vn[kRows], ecc[kRows];
+    bool out[kRows];
+    q_teda_tile<kRows>(f, kk0 + (int32_t)t0 + 1, n_valid, xv, mq, mean,
+                       var, mn, vn, ecc, out);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (t0 + r < T) {
+        const int64_t idx = (t0 + r) * C + c;
+        ecc_out[idx] = ecc[r];
+        outlier_out[idx] = (r < n_valid && out[r]) ? 1 : 0;
+        if (Full) {
+          mean_out[idx] = mn[r];
+          var_out[idx] = vn[r];
+        }
+      }
     }
   }
   fk[c] = kk0 + vl;

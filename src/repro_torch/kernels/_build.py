@@ -14,17 +14,20 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "LIB_PATH", "build", "library", "check"]
+__all__ = ["CSRC", "BUILD_DIR", "LIB_PATH", "build", "library", "check",
+           "sass_stats"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_PATH = BUILD_DIR / "libteda_kernels.so"
-SOURCES = ("teda_scan.cu", "teda_q_scan.cu", "ensemble_scan.cu")
+SOURCES = ("teda_scan.cu", "teda_q_scan.cu", "ensemble_scan.cu",
+           "qdiv_probe.cu")
 HEADERS = ("qformat.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # no --use_fast_math: it changes division and denormals on the float path
@@ -37,6 +40,7 @@ SIGNATURES = {
     "teda_scan_f32": [_V] * 13 + [_LL, _LL, _I, _I, _V],
     "teda_q_scan_i32": [_V] * 13 + [_LL, _LL, _I, _I, _I, _I, _I, _V],
     "ensemble_scan_f32": [_V] * 12 + [_LL, _LL] + [_I] * 14 + [_V],
+    "qdiv_probe_u32": [_V] * 3 + [_LL, _I, _I, _I, _I, _V],
 }
 
 _lib = None
@@ -123,3 +127,51 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def sass_stats(path=LIB_PATH) -> dict:
+    """Static SASS instruction counts of each kernel in a built library,
+    from `cuobjdump -sass` beside nvcc: {mangled name: {"instructions":
+    n, "loops": [instructions in each loop body, innermost first]}},
+    NOPs left out.  A loop is a backward branch; its body runs from the
+    branch target to the branch.  Empty when cuobjdump is missing."""
+    exe = Path(nvcc_path()).with_name("cuobjdump")
+    if not exe.is_file():
+        found = shutil.which("cuobjdump")
+        if found is None:
+            return {}
+        exe = Path(found)
+    out = subprocess.run([str(exe), "-sass", str(path)], check=True,
+                         capture_output=True, text=True).stdout
+    stats, fn = {}, None
+    for line in out.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = {"ins": [], "labels": {}}
+            stats[head.group(1)] = fn
+            continue
+        if fn is None:
+            continue
+        label = re.match(r"\s*\.(L_x_\d+):", line)
+        if label:
+            fn["labels"][label.group(1)] = len(fn["ins"])
+            continue
+        ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if ins and not ins.group(2).strip().startswith("NOP"):
+            fn["ins"].append((int(ins.group(1), 16), ins.group(2)))
+    result = {}
+    for name, fn in stats.items():
+        addr = {a: i for i, (a, _) in enumerate(fn["ins"])}
+        loops = []
+        for i, (_, text) in enumerate(fn["ins"]):
+            tgt = re.search(r"BRA\s+(?:`\(\.(L_x_\d+)\)|(0x[0-9a-f]+))",
+                            text)
+            if tgt is None:
+                continue
+            j = (fn["labels"].get(tgt.group(1)) if tgt.group(1)
+                 else addr.get(int(tgt.group(2), 16)))
+            if j is not None and j < i:
+                loops.append(i - j + 1)
+        result[name] = {"instructions": len(fn["ins"]),
+                        "loops": sorted(loops)}
+    return result

@@ -19,8 +19,11 @@ whole-block divider passes through `kernels/qdiv.py` around two slim
 mean and var row loops — fed the float32-quantized m^2+1 constant.
 
 On the card the kernel is bound by bytes at K = 5: 4 B in and
-4 + 1 + 4K B out per sample, with the teda-q lane's six software
-integer divides per sample close behind.
+4 + 1 + 4K B out per sample, with the teda-q lane's six integer
+dividers and the float lanes' IEEE divides per sample close behind.
+With teda-q a block runs the integer lane in warps of its own beside
+the float warps, handing its flags over through shared memory; without
+it a block is the float warps alone.
 
 Contract: x (T, C) float32; vlen (C,) int32 in [0, T]; k0, m, thr (C,)
 float32; sel (K, C) float32; aux (spec.rows, C) float32 whose i32

@@ -9,19 +9,22 @@ The plain version keeps the reference kernel's structure, in int64:
 whole-block divider passes (rk = (k-1)/k, 1/k, thr = msq1/2k, x/k,
 d2/k, d2/var, ratio/k through `kernels/qdiv.py`) around two sequential
 row loops, one saturating multiply-add per row for the mean and for the
-variance.  The CUDA kernel evaluates the same dividers inline, one
-thread per channel walking its rows (`csrc/qformat.cuh`).
+variance.  The CUDA kernel runs the same passes on register tiles of
+rows, one thread per channel (`q_teda_tile` in `csrc/qformat.cuh`).
 
-On the card the kernel is bound by operations: six software integer
-divides per sample, two of them followed by FL restoring steps, beside
-9 B of traffic per sample in the verdict contract.  One thread per
-channel under-fills the card at small C; time-parallel designs are
-later work.
+On the card the kernel is bound by integer operations: six dividers
+per sample (a float64 reciprocal estimate and one exact correction
+step each, `q_recip_div_mag`), beside 9 B of traffic per sample in the
+verdict contract.  It walks each channel in tiles of rows, with the
+dividers of a tile off the two carried multiply-add chains.  One
+thread per channel under-fills the card at small C; time-parallel
+designs are later work.
 
 Contract: x (T, C) int32 Q; msq1, k0, mean0, var0 (C,) int32; vlen
-(C,) int32 in [0, T].  Rows at or past vlen[c] leave channel c's carries
-untouched and never flag.  Returns (mean, var, ecc, outlier, fk, fmean,
-fvar) with mean/var None in the verdict contract; outlier is bool.
+(C,) int32, clamped to [0, T] by `teda_q_scan_call`.  Rows at or past
+vlen[c] leave channel c's carries untouched and never flag.  Returns
+(mean, var, ecc, outlier, fk, fmean, fvar) with mean/var None in the
+verdict contract; outlier is bool.
 """
 from __future__ import annotations
 
@@ -121,13 +124,14 @@ def teda_q_scan_call(x, msq1, vlen, k0, mean0, var0, *, fmt: QFormat,
                      full: bool = False):
     """Run the Q TEDA scan: the CUDA kernel on CUDA tensors, the plain
     version on CPU tensors.  The rows are moved to x's device, cast to
-    int32 and made contiguous."""
+    int32 and made contiguous; vlen is clamped to [0, T]."""
     fmt.validate()
-    dev, c = x.device, x.shape[1]
+    dev, (t_len, c) = x.device, x.shape
 
     def i32(v):
         return v.to(device=dev, dtype=_I32).contiguous()
 
+    vlen = i32(vlen).clamp(0, t_len)
     args = tuple(i32(v) for v in (x, msq1, vlen, k0, mean0, var0))
     if x.ndim != 2 or any(a.shape != (c,) for a in args[1:]):
         raise ValueError(f"x must be (T, C) and each row ({c},)")

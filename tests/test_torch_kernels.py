@@ -271,6 +271,25 @@ def test_cpu_tensors_take_the_plain_version():
         tops.teda_scan_verdict(meta, 3.0)
 
 
+@pytest.mark.parametrize("full", [False, True])
+def test_q_call_clamps_vlen(full):
+    # vlen outside [0, T] gives the result of the clamped vlen: carries,
+    # final k and flags of a channel with vlen > T are those of vlen = T
+    t, c = 20, 4
+    fmt = TQ(*SPEC)
+    x = fmt.quantize(torch.from_numpy(_x(t, c, seed=24)))
+    k0, mean0, var0 = (torch.from_numpy(v) for v in _q_state(fmt, c, 25))
+    msq1 = torch.full((c,), 10 << 20, dtype=torch.int32)
+    wild = torch.tensor([-5, t + 7, 2**31 - 1, 3], dtype=torch.int32)
+    got = tq_kernel.teda_q_scan_call(x, msq1, wild, k0, mean0, var0,
+                                     fmt=fmt, full=full)
+    want = tq_kernel.teda_q_scan_call(x, msq1, wild.clamp(0, t), k0, mean0,
+                                      var0, fmt=fmt, full=full)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert got[4].tolist() == (k0 + torch.tensor([0, t, t, 3])).tolist()
+
+
 # -------------------------------------------------------------- GPU
 @pytest.mark.parametrize("full", [False, True])
 def test_cuda_kernels_match_plain(cuda, full):
