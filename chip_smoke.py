@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --ensemble-times [--src DIR]
+    python3 chip_smoke.py --teda-times [--src DIR]
 
 Run from the repository root on a machine with a CUDA device and the
 CUDA toolkit.  The phases, each of which raises on failure:
@@ -20,21 +21,25 @@ CUDA toolkit.  The phases, each of which raises on failure:
   3. kernels — each kernel against its plain PyTorch version on the card
                at C = 65,536 channels x T = 512 rows, from a carried
                state (k0 up to ~10^4) with a ragged vlen and a mixed
-               per-channel m, for both output contracts: the Q kernel
-               bit-exact, the float kernel within rtol 5e-4 / atol 1e-5
-               with flags equal outside a 1e-4 relative band around the
-               threshold.  The ensemble kernel (K = 5 members, W = 8,
-               QFormat(32, 20)) from a warm carried state with ragged
-               vlen, mixed m, per-channel member selections and vote
-               thresholds and NaN samples: bits, vote, k, all five
+               per-channel m, for both output contracts, bit-exact (the
+               float kernel's outputs as int32 words, finals included).
+               The float kernel also at the edges of its staged tiles:
+               T in {0, 1, S - 1, S, S + 1, 2S + 1, 37} (S = STAGE_ROWS)
+               x C in {1, 127, 129, 1000} and C = 1000 with x's base off
+               16-byte alignment, vlen 0, T and ragged, NaN and +-inf
+               samples, from a warm carried state.  The ensemble
+               kernel (K = 5 members, W = 8, QFormat(32, 20)) from a
+               warm carried state with ragged vlen, mixed m,
+               per-channel member selections and vote thresholds and
+               NaN samples: bits, vote, k, all five
                score streams and the aux block as int32 words
                bit-exact, the scores' largest difference printed; the
                same at C = 1,000 (not a multiple of the block) x T = 37
                (a partial tile) and at W = 300 (the block halved), with
                and without teda-q (the block with and without its Q
                warps).  Kernel and plain times from CUDA events (the
-               ensemble's with ragged and with uniform vlen), device
-               time from the profiler;
+               float kernel's and the ensemble's with ragged and with
+               uniform vlen), device time from the profiler beside them;
   4. engine  — StreamEngine(4096, "cuda"), (4096, "cuda-q") and
                (4096, "ensemble") on the card against the same engines
                on the CPU through uneven chunks, ragged calls, per-slot
@@ -54,7 +59,9 @@ package is not beside it.
 ensemble kernel alone on the main path's inputs for several member
 sets (`ensemble_times`), for the package of the tree at DIR (default:
 this one): run it on a `git archive` of another commit to compare
-kernels in one call.
+kernels in one call.  `--teda-times` does the same for the float
+kernel (`teda_times`): profiled device time per launch with uniform,
+ragged and zero vlen, in both contracts.
 """
 from __future__ import annotations
 
@@ -123,16 +130,6 @@ def float_ops_per_sample():
     return 19
 
 
-def q_ops_per_sample(frac_len):
-    # the work of the bit-serial divider's fast image, kept as the count
-    # so that bounds compare across kernel designs: six dividers (one
-    # integer divide + ~10 sign/remainder/saturation ops each), FL
-    # restoring steps of ~5 ops for the two Q/Q ones, three widening
-    # multiplies (~12), three saturating adds and one subtract (~4),
-    # counter, shift and compares (~10)
-    return 6 * 11 + 2 * 5 * frac_len + 3 * 12 + 4 * 4 + 10
-
-
 def q_recip_ops_per_sample():
     # the Q row as `q_teda_tile` runs it since the reciprocal divider,
     # counted by hand from csrc/qformat.cuh (about +-20%): two
@@ -147,12 +144,12 @@ def q_recip_ops_per_sample():
     return 2 * 11 + 5 + 6 * (20 + 6) + 3 * 22 + 4 * 7 + 15
 
 
-def ensemble_ops_per_sample(frac_len):
+def ensemble_ops_per_sample():
     # the teda-q lane (above, plus ~8 for the quantizer and the score),
     # the moment fabric (sums, mean, deviation: ~6), teda (the float
     # scan's 19), rde (~9), zscore (~12), hst (8 leaves x 3 + ~8) and
     # the vote over 5 members (~20)
-    return q_ops_per_sample(frac_len) + 8 + 6 + 19 + 9 + 12 + 32 + 20
+    return q_recip_ops_per_sample() + 8 + 6 + 19 + 9 + 12 + 32 + 20
 
 
 def bound_ms(t_len, c, in_row_bytes, out_row_bytes, n_carry_rows,
@@ -287,6 +284,80 @@ def _close(name, a, b, where=None):
     return float(err.max())
 
 
+FLOAT_OUTS = ("mean", "var", "ecc", "outlier", "fk", "fsum", "fvar")
+
+
+def _float_equal(tag, kern, plain):
+    """Every output of the float kernel equals the plain version's bit
+    for bit: floats as int32 words (NaN payloads included), flags by
+    value, None (the verdict contract's mean and var) on both sides.
+    Returns the float outputs' largest difference (0.0 when equal)."""
+    err = 0.0
+    for name, a, b in zip(FLOAT_OUTS, kern, plain):
+        if a is None or b is None:
+            check(a is None and b is None, f"float {tag} {name}: None on "
+                  "one side only")
+            continue
+        same = a.shape == b.shape and (
+            torch.equal(_words(a), _words(b)) if a.dtype == torch.float32
+            else torch.equal(a, b))
+        check(same, f"float {tag} {name}: kernel and plain differ")
+        if a.dtype == torch.float32:
+            err = max(err, _score_diff(a, b))
+    return err
+
+
+def _float_edges(rng, dev):
+    """The float kernel against its plain version, bit for bit, at the
+    edges of its staged tiles: T around STAGE_ROWS, C off the block
+    width and off 16-byte pieces, x's base off 16-byte alignment, vlen 0,
+    T and ragged, NaN and +-inf samples, from a warm carried state."""
+    from repro_torch.kernels import teda_scan as fk
+
+    S = fk.STAGE_ROWS
+    t_lens = (0, 1, S - 1, S, S + 1, 2 * S + 1, 37)
+    widths = ((1, False), (127, False), (129, False), (1000, False),
+              (1000, True))
+    n_calls = 0
+    for c, offset in widths:
+        # warm carry: the plain version over 48 rows with ragged vlen,
+        # some channels left fresh (vlen 0)
+        _, _, warm = _stream_inputs(rng, c, 48)
+        m = torch.from_numpy(rng.choice(np.array([2.0, 3.0, 4.5],
+                                                 np.float32), size=c)).to(dev)
+        zeros = torch.zeros(c, device=dev)
+        *_, k0, sum0, var0 = fk.teda_scan_plain(
+            torch.from_numpy(warm).to(dev), m,
+            torch.from_numpy(_ragged_vlen(rng, c, 48)).to(dev), zeros,
+            zeros, zeros)
+        for t_len in t_lens:
+            _, _, x_np = _stream_inputs(rng, c, t_len)
+            u = rng.random(x_np.shape)
+            x_np[u < 0.003] = np.nan
+            x_np[(u >= 0.003) & (u < 0.005)] = np.inf
+            x_np[(u >= 0.005) & (u < 0.007)] = -np.inf
+            x = torch.from_numpy(x_np).to(dev)
+            if offset:  # contiguous, 4 bytes past 16-byte alignment
+                x = torch.empty(t_len * c + 1, device=dev)[1:].view(
+                    t_len, c).copy_(x)
+            for mode in ("0", "T", "ragged"):
+                vl = (_ragged_vlen(rng, c, t_len) if mode == "ragged" else
+                      np.full(c, 0 if mode == "0" else t_len, np.int32))
+                args = (x, m, torch.from_numpy(vl).to(dev), k0, sum0, var0)
+                for full in (False, True):
+                    _float_equal(
+                        f"T={t_len} C={c}{' offset' if offset else ''} "
+                        f"vlen {mode} {'full' if full else 'verdict'}",
+                        fk.teda_scan_call(*args, full=full),
+                        fk.teda_scan_plain(*args, full=full))
+                    n_calls += 1
+    log(f"[kernels] teda_scan bit-exact with the plain version in "
+        f"{n_calls} edge calls: T in {t_lens} x C in "
+        f"{[c for c, _ in widths]} (the second 1000 off 16-byte "
+        "alignment) x vlen 0, T, ragged x both contracts, NaN and +-inf "
+        "samples, warm carries")
+
+
 def phase_kernels(seed):
     from repro_torch.fixedpoint import QFormat, msq1_const
     from repro_torch.kernels import teda_q_scan as qk
@@ -327,7 +398,6 @@ def phase_kernels(seed):
     msq1 = msq1_const(fmt, m_np).to(dev)  # exact float64 quantization
     vl = torch.from_numpy(vl_np).to(dev)
     valid = (torch.arange(t_len, device=dev)[:, None] < vl[None, :])
-    k_rows = k0[None, :] + torch.arange(1, t_len + 1, device=dev)[:, None]
     log(f"[kernels] C={c} T={t_len}: vlen 0 on {int((vl == 0).sum())}, "
         f"T on {int((vl == t_len).sum())} channels; m in "
         f"{{2.0, 3.0, 4.5}}; {int(valid.sum())} valid samples")
@@ -336,26 +406,18 @@ def phase_kernels(seed):
     q_args = (xq, msq1, vl, qk0, qmean0, qvar0)
     records = {}
 
-    # ---- float kernel vs plain, both contracts
-    f_err, in_band = 0.0, 0
+    # ---- float kernel vs plain, both contracts: bit-exact
+    f_err = 0.0
     for full in (False, True):
         kern = fk.teda_scan_call(*f_args, full=full)
         plain = fk.teda_scan_plain(*f_args, full=full)
         torch.cuda.synchronize()
         tag = "full" if full else "verdict"
-        names = ("mean", "var", "ecc", "outlier", "fk", "fsum", "fvar")
-        for name, a, b in zip(names, kern, plain):
-            if a is None or name == "outlier":
-                continue
-            f_err = max(f_err, _close(f"float {tag} {name}", a, b))
-        n_band, n_out = _band_mismatch(plain[2], m[None, :], k_rows,
-                                       kern[3], plain[3])
-        check(n_out == 0, f"float {tag}: {n_out} flag mismatches outside "
-              f"the {BAND} threshold band")
-        in_band += n_band
-        log(f"[kernels] teda_scan {tag}: allclose ok, max abs err "
-            f"{f_err:.3e}, flags equal outside the band ({n_band} flips "
-            f"inside), {int(kern[3].sum())} flags")
+        f_err = max(f_err, _float_equal(f"C={c} T={t_len} {tag}", kern,
+                                        plain))
+        log(f"[kernels] teda_scan {tag}: every output bit-exact, finals "
+            f"included ({int(kern[3].sum())} flags)")
+    _float_edges(rng, dev)
 
     # ---- Q kernel vs plain, both contracts: bit-exact
     for full in (False, True):
@@ -375,10 +437,22 @@ def phase_kernels(seed):
         log(f"[kernels] teda_q_scan {tag}: bit-exact "
             f"({int(kern[3].sum())} flags)")
 
-    # ---- times: kernel (>= 20 launches after warm-up) and plain
-    f_ms = cuda_ms(lambda: fk.teda_scan_call(*f_args), reps=50)
-    f_full_ms = cuda_ms(lambda: fk.teda_scan_call(*f_args, full=True),
-                        reps=20)
+    # ---- times: kernel (>= 20 launches after warm-up) and plain; the
+    # float kernel by events and by the profiler's device time, with
+    # phase 3's ragged vlen and with vlen = T (the main path's)
+    uni = (x, m, torch.full_like(vl, t_len), k0, sum0, var0)
+    for full in (False, True):
+        for inputs, a in (("ragged", f_args), ("uniform", uni)):
+            ev = cuda_ms(lambda: fk.teda_scan_call(*a, full=full), reps=50)
+            dv = profiled_device_ms(lambda: fk.teda_scan_call(*a, full=full),
+                                    10, "teda_scan")
+            log(f"[kernels] teda_scan {'full' if full else 'verdict'} "
+                f"{inputs} vlen: {ev:.4f} ms by events, "
+                f"{'not measured' if dv is None else f'{dv:.4f} ms'} "
+                "device time (profiler)")
+            if not full and inputs == "uniform":
+                f_ms, f_how = (ev, "events") if dv is None else (dv,
+                                                                 "profiler")
     f_plain_ms = cuda_ms(lambda: fk.teda_scan_plain(*f_args), reps=2,
                          warmup=1)
     q_ms = cuda_ms(lambda: qk.teda_q_scan_call(*q_args, fmt=fmt), reps=20)
@@ -389,9 +463,9 @@ def phase_kernels(seed):
     # verdict contract: x in (4 B), ecc (4 B) + flag (1 B) out per
     # sample; m/vlen/k0/carry rows in and the three finals out
     f_bound = bound_ms(t_len, c, 4, 5, 5 + 3, float_ops_per_sample())
-    q_bound = bound_ms(t_len, c, 4, 5, 5 + 3, q_ops_per_sample(fmt.frac_len))
-    log(f"[kernels] teda_scan verdict {f_ms:.4f} ms (full {f_full_ms:.4f} "
-        f"ms), plain {f_plain_ms:.2f} ms, bound {f_bound[0]:.4f} ms "
+    q_bound = bound_ms(t_len, c, 4, 5, 5 + 3, q_recip_ops_per_sample())
+    log(f"[kernels] teda_scan verdict {f_ms:.4f} ms per launch (uniform vlen, "
+        f"{f_how}), plain {f_plain_ms:.2f} ms, bound {f_bound[0]:.4f} ms "
         f"({f_bound[1]})")
     log(f"[kernels] teda_q_scan verdict {q_ms:.4f} ms (full "
         f"{q_full_ms:.4f} ms), plain {q_plain_ms:.2f} ms, bound "
@@ -592,7 +666,7 @@ def phase_ensemble_kernel(seed):
     # block in and out, the sel rows and the k0/m/thr/vlen/fk rows
     bound = bound_ms(t_len, c, 4, 4 + 1 + 4 * len(ALL5),
                      2 * spec.rows + len(ALL5) + 5,
-                     ensemble_ops_per_sample(fmt.frac_len))
+                     ensemble_ops_per_sample())
     log(f"[kernels] ensemble_scan {ms:.4f} ms by events, "
         f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} "
         f"device time (profiler), plain {plain_ms:.2f} ms, bound "
@@ -603,6 +677,56 @@ def phase_ensemble_kernel(seed):
         "replaces": "src/repro/kernels/ensemble_scan.py:183",
         "max_abs_err": score_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}}
+
+
+def _spiked_chunks(gen, c, t_len, n):
+    """The main path's stream: n chunks (T, C) of per-channel level and
+    scale with 0.2% spikes of 12 sigma, made on the card from `gen`."""
+    dev = torch.device("cuda")
+    mu = torch.randn(c, generator=gen, device=dev) * 2.0
+    sigma = torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5
+    chunks = []
+    for _ in range(n):
+        ch = mu + sigma * torch.randn((t_len, c), generator=gen, device=dev)
+        spikes = torch.rand((t_len, c), generator=gen, device=dev) < 0.002
+        chunks.append(torch.where(spikes, ch + 12.0 * sigma, ch))
+    return chunks
+
+
+def teda_times(seed, smi, reps=20):
+    """teda_scan alone on the main path's inputs: C = 65,536, T = 512,
+    phase 5's spiked stream, m = 3, from the state one chunk leaves,
+    with vlen uniform (= T, the main path's), ragged (phase 3's draw, 0
+    and T included) and zero (every row idle), in both contracts.  Per
+    line: device time per launch from the profiler over `reps` launches,
+    and milliseconds per launch by CUDA events over as many."""
+    from repro_torch.kernels import teda_scan as fk
+
+    dev = torch.device("cuda")
+    c, t_len = C_WIDE, T_CHUNK
+    chunks = _spiked_chunks(torch.Generator(device=dev).manual_seed(seed + 2),
+                            c, t_len, 2)
+    m = torch.full((c,), 3.0, device=dev)
+    zeros = torch.zeros(c, device=dev)
+    uni = torch.full((c,), t_len, dtype=torch.int32, device=dev)
+    *_, k0, sum0, var0 = fk.teda_scan_call(chunks[0], m, uni, zeros, zeros,
+                                           zeros)
+    vlens = {"uniform": uni, "ragged": torch.from_numpy(_ragged_vlen(
+        np.random.default_rng(seed), c, t_len)).to(dev),
+        "zero": torch.zeros_like(uni)}
+    log(f"[times] teda_scan from {fk.__file__} on {smi}")
+    for full in (False, True):
+        for name, vl in vlens.items():
+            args = (chunks[1], m, vl, k0, sum0, var0)
+            ev = cuda_ms(lambda: fk.teda_scan_call(*args, full=full),
+                         reps=reps)
+            dv = profiled_device_ms(
+                lambda: fk.teda_scan_call(*args, full=full), reps,
+                "teda_scan")
+            log(f"[times] teda_scan {'full' if full else 'verdict'} vlen "
+                f"{name}: "
+                f"{'not measured' if dv is None else f'{dv:.4f} ms'} "
+                f"device time per launch (profiler), {ev:.4f} ms by events")
 
 
 MEMBER_SETS = (ALL5, ("teda", "rde", "zscore", "hst"), ("teda",),
@@ -627,14 +751,8 @@ def ensemble_times(seed, smi, reps=20):
 
     dev = torch.device("cuda")
     c, t_len = C_WIDE, T_CHUNK
-    gen = torch.Generator(device=dev).manual_seed(seed + 4)
-    mu = torch.randn(c, generator=gen, device=dev) * 2.0
-    sigma = torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5
-    chunks = []
-    for _ in range(2):
-        ch = mu + sigma * torch.randn((t_len, c), generator=gen, device=dev)
-        spikes = torch.rand((t_len, c), generator=gen, device=dev) < 0.002
-        chunks.append(torch.where(spikes, ch + 12.0 * sigma, ch))
+    chunks = _spiked_chunks(torch.Generator(device=dev).manual_seed(seed + 4),
+                            c, t_len, 2)
     vl = torch.full((c,), t_len, dtype=torch.int32, device=dev)
     m = torch.full((c,), 3.0, device=dev)
     designs = [("one design", {})]
@@ -845,14 +963,8 @@ def phase_stream(seed, smi):
     dev = torch.device("cuda")
     c, t_len = C_WIDE, T_CHUNK
     fmt = QFormat(32, 20)
-    gen = torch.Generator(device=dev).manual_seed(seed + 2)
-    mu = torch.randn(c, generator=gen, device=dev) * 2.0
-    sigma = torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5
-    chunks = []
-    for _ in range(N_CHUNKS):
-        ch = mu + sigma * torch.randn((t_len, c), generator=gen, device=dev)
-        spikes = torch.rand((t_len, c), generator=gen, device=dev) < 0.002
-        chunks.append(torch.where(spikes, ch + 12.0 * sigma, ch))
+    chunks = _spiked_chunks(torch.Generator(device=dev).manual_seed(seed + 2),
+                            c, t_len, N_CHUNKS)
     q_chunks = [fmt.quantize(ch) for ch in chunks]
     engines = {"cuda": StreamEngine(c, "cuda"),
                "cuda-q": StreamEngine(c, "cuda-q", fmt=fmt)}
@@ -934,14 +1046,8 @@ def phase_ensemble_stream(seed, smi):
     dev = torch.device("cuda")
     c, t_len = C_WIDE, T_CHUNK
     fmt = QFormat(32, 20)
-    gen = torch.Generator(device=dev).manual_seed(seed + 4)
-    mu = torch.randn(c, generator=gen, device=dev) * 2.0
-    sigma = torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5
-    chunks = []
-    for _ in range(N_CHUNKS):
-        ch = mu + sigma * torch.randn((t_len, c), generator=gen, device=dev)
-        spikes = torch.rand((t_len, c), generator=gen, device=dev) < 0.002
-        chunks.append(torch.where(spikes, ch + 12.0 * sigma, ch))
+    chunks = _spiked_chunks(torch.Generator(device=dev).manual_seed(seed + 4),
+                            c, t_len, N_CHUNKS)
     eng = StreamEngine(c, "ensemble", detectors=ALL5, window=WINDOW,
                        fmt=fmt, vote="majority")
     held = [eng.process(ch) for ch in chunks]  # untimed pass
@@ -1080,15 +1186,19 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ensemble-times", action="store_true",
                     help="time the ensemble kernel alone per member set")
+    ap.add_argument("--teda-times", action="store_true",
+                    help="time the float kernel alone, uniform, ragged and "
+                    "zero vlen")
     ap.add_argument("--src", type=Path, default=ROOT,
-                    help="the tree whose package --ensemble-times runs")
+                    help="the tree whose package the --*-times modes run")
     args = ap.parse_args(argv)
+    times = args.ensemble_times or args.teda_times
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
-    src = (args.src if args.ensemble_times else ROOT).resolve() / "src"
+    src = (args.src if times else ROOT).resolve() / "src"
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found",
               file=sys.stderr)
@@ -1100,8 +1210,11 @@ def main(argv=None):
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
-    if args.ensemble_times:
-        ensemble_times(args.seed, smi)
+    if times:
+        if args.ensemble_times:
+            ensemble_times(args.seed, smi)
+        if args.teda_times:
+            teda_times(args.seed, smi)
         return 0
     phase_divider(args.seed)
     records = phase_kernels(args.seed)

@@ -8,9 +8,11 @@ tensors.  The CUDA kernel replaces the JAX package's Pallas TPU kernel
 On the card the kernel is bound by bytes: the verdict contract moves
 4 B in and 5 B out per sample (ecc f32, flag u8), the full contract 4 B
 in and 13 B out.  It runs one thread per channel, walking the rows in
-order with the running sum and variance in registers; at small C that
-under-fills the card (C = 65,536 is about 496 threads per SM of 132).
-Time-parallel designs are later work.
+order with the running sum and variance in registers, and stages x
+through shared memory in tiles of `STAGE_ROWS` rows x 128 channels,
+several tiles in flight per block (cp.async).  At small C one thread
+per channel under-fills the card (C = 65,536 is about 496 threads per
+SM of 132); time-parallel designs are later work.
 
 Contract: x (T, C) float32; m, k0, sum0, var0 (C,) float32; vlen (C,)
 int32 in [0, T].  Rows at or past vlen[c] leave channel c's carries
@@ -23,9 +25,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["teda_scan_call", "teda_scan_plain", "launches"]
+__all__ = ["teda_scan_call", "teda_scan_plain", "launches", "STAGE_ROWS"]
 
 launches = 0  # kernel launches made by `teda_scan_call`
+STAGE_ROWS = 32  # rows per staged tile: kRows in csrc/teda_scan.cu
 
 
 def _rows(t_len, c, dtype, device, full=True):

@@ -290,6 +290,144 @@ def test_q_call_clamps_vlen(full):
     assert got[4].tolist() == (k0 + torch.tensor([0, t, t, 3])).tolist()
 
 
+# ------------------------------------- float, at the staged tiles' edges
+S = tf_kernel.STAGE_ROWS  # rows per tile of csrc/teda_scan.cu
+EDGE_T = (0, 1, S - 1, S, S + 1, 2 * S + 1, 37)
+EDGE_C = (1, 127, 129, 1000)
+
+
+def _edge_x(t, c, seed):
+    """(T, C) samples with spikes that flag and, in channels 4 and up,
+    NaN and +-inf samples."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(loc=1.0, size=(t, c)).astype(np.float32)
+    x[rng.random((t, c)) < 0.01] += 9.0
+    if c > 4:
+        u = rng.random((t, c))
+        u[:, :4] = 1.0
+        x[u < 0.004] = np.nan
+        x[(u >= 0.004) & (u < 0.006)] = np.inf
+        x[(u >= 0.006) & (u < 0.008)] = -np.inf
+    return x
+
+
+def _edge_vlen(t, c, seed):
+    """Ragged vlen in [0, T] with 0 and T among them (vlen = T for one
+    channel)."""
+    return (np.minimum(_vlen(t, c, seed), t) if c > 1
+            else np.full(1, t, np.int32))
+
+
+@pytest.mark.parametrize("c", EDGE_C)
+@pytest.mark.parametrize("t", EDGE_T)
+def test_plain_matches_teda_ref_at_stage_edges(t, c):
+    """teda_scan_plain against the float64 oracle at the T and C edges of
+    the kernel's staged tiles, from a warm carry with ragged vlen (0 and
+    T included) and NaN/+-inf samples: rows below a channel's vlen are
+    teda_ref's rows; rows at or past it keep mean = sum/k, var frozen,
+    ecc = 1/k and no flag; the finals are the last valid row's."""
+    k0 = 7
+    x = _edge_x(t, c, seed=100 + t + c)
+    vl = _edge_vlen(t, c, seed=200 + t + c)
+    rng = np.random.default_rng(300 + t + c)
+    sum0 = (k0 * rng.normal(loc=1.0, size=c)).astype(np.float32)
+    var0 = rng.uniform(0.5, 1.5, size=c).astype(np.float32)
+    mean, var, ecc, outlier, fk, fsum, fvar = tf_kernel.teda_scan_plain(
+        torch.from_numpy(x), torch.full((c,), 3.0), torch.from_numpy(vl),
+        torch.full((c,), float(k0)), torch.from_numpy(sum0),
+        torch.from_numpy(var0), full=True)
+
+    ref = teda_ref(x, 3.0, k0=k0, sum0=sum0, var0=var0)
+    valid = _valid(t, vl)
+    kk = k0 + np.arange(1, t + 1, dtype=np.float64)[:, None]
+    last = np.maximum(vl - 1, 0)
+    cols = np.arange(c)
+    x_valid = np.where(valid, x.astype(np.float64), 0.0)
+    with np.errstate(invalid="ignore"):  # +inf and -inf in one channel
+        s_v = sum0 + (np.cumsum(x_valid, axis=0)[last, cols] if t else 0.0)
+    var_v = np.where(vl > 0, ref["var"][last, cols] if t else 0.0, var0)
+    want = {"mean": np.where(valid, ref["mean"], s_v / kk),
+            "var": np.where(valid, ref["var"], var_v),
+            "ecc": np.where(valid, ref["ecc"], 1.0 / kk)}
+    for key, got in (("mean", mean), ("var", var), ("ecc", ecc)):
+        np.testing.assert_allclose(got.numpy(), want[key], rtol=RTOL,
+                                   atol=ATOL, err_msg=key)
+    np.testing.assert_array_equal(outlier.numpy(), ref["outlier"] & valid)
+    np.testing.assert_array_equal(fk.numpy(), k0 + vl)
+    np.testing.assert_allclose(fsum.numpy(), s_v, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(fvar.numpy(), var_v, rtol=RTOL, atol=ATOL)
+
+
+def test_plain_matches_jax_kernel_interpret_at_stage_edges():
+    """One shape through the Pallas kernel in interpret mode: T = 2S + 1
+    over 16-row time blocks, C = 129 (one past the block width), ragged
+    vlen with 0 and T, per-slot m, a warm per-channel carry, NaN/+-inf
+    samples.  Every row is compared, rows past vlen included."""
+    t, c = 2 * S + 1, 129
+    x = _edge_x(t, c, seed=31)
+    k0, mean0, var0 = _float_state(c, seed=32)
+    vl = _vlen(t, c, seed=33)
+    m = np.linspace(1.5, 4.0, c).astype(np.float32)
+    jfin, jout = jops.teda_scan_tpu(
+        jnp.asarray(x), jnp.asarray(m),
+        JState(k=jnp.asarray(k0), mean=jnp.asarray(mean0)[:, None],
+               var=jnp.asarray(var0)),
+        valid_lens=jnp.asarray(vl), block_t=16)
+    mean, var, ecc, outlier, fk, fsum, fvar = tf_kernel.teda_scan_plain(
+        torch.from_numpy(x), torch.from_numpy(m), torch.from_numpy(vl),
+        torch.from_numpy(k0), torch.from_numpy(mean0 * k0),
+        torch.from_numpy(var0), full=True)
+    for key, got in (("mean", mean), ("var", var), ("ecc", ecc)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(jout[key]),
+                                   rtol=RTOL, atol=ATOL, err_msg=key)
+    np.testing.assert_array_equal(outlier.numpy(), np.asarray(jout["outlier"]))
+    np.testing.assert_array_equal(fk.numpy(), np.asarray(jfin.k))
+    np.testing.assert_allclose(fvar.numpy(), np.asarray(jfin.var), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(
+        (fsum / torch.clamp(fk, min=1.0)).numpy(),
+        np.asarray(jfin.mean)[:, 0], rtol=RTOL, atol=ATOL)
+
+
+def _words(v):
+    return v.view(torch.int32) if v.dtype == torch.float32 else v
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["uniform", "ragged"])
+@pytest.mark.parametrize("full", [False, True], ids=["verdict", "full"])
+def test_plain_chunked_at_stage_boundaries_is_bit_identical(full, ragged):
+    """The plain version run in chunks cut at the kernel's tile boundaries
+    (S - 1, S, S + 1, 2S, 2S + 1) equals one full run bit for bit, NaN
+    and +-inf samples and warm carries included: rows below vlen as
+    int32 words, the flags everywhere, the finals."""
+    t, c = 2 * S + 5, 129
+    x = torch.from_numpy(_edge_x(t, c, seed=40))
+    k0, mean0, var0 = (torch.from_numpy(v) for v in _float_state(c, 41))
+    m = torch.from_numpy(np.linspace(1.5, 4.0, c).astype(np.float32))
+    vl = torch.from_numpy(_vlen(t, c, seed=42) if ragged
+                          else np.full(c, t, np.int32))
+    carry = (k0, mean0 * k0, var0)
+    whole = tf_kernel.teda_scan_plain(x, m, vl, *carry, full=full)
+    parts = []
+    cuts = (0, S - 1, S, S + 1, 2 * S, 2 * S + 1, t)
+    for lo, hi in zip(cuts, cuts[1:]):
+        part = tf_kernel.teda_scan_plain(
+            x[lo:hi], m, (vl - lo).clamp(0, hi - lo).to(torch.int32),
+            *carry, full=full)
+        carry = part[4:]
+        parts.append(part)
+    valid = torch.arange(t)[:, None] < vl[None, :]
+    for i, name in enumerate(("mean", "var", "ecc")):
+        if whole[i] is None:
+            assert not full and all(p[i] is None for p in parts)
+            continue
+        rows = torch.cat([p[i] for p in parts])
+        assert torch.equal(_words(rows)[valid], _words(whole[i])[valid]), name
+    assert torch.equal(torch.cat([p[3] for p in parts]), whole[3])
+    for name, a, b in zip(("fk", "fsum", "fvar"), carry, whole[4:]):
+        assert torch.equal(_words(a), _words(b)), name
+
+
 # -------------------------------------------------------------- GPU
 @pytest.mark.parametrize("full", [False, True])
 def test_cuda_kernels_match_plain(cuda, full):
