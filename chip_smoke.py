@@ -48,9 +48,24 @@ CUDA toolkit.  The phases, each of which raises on failure:
   5. stream  — the main path: StreamEngine(65536, backend) for "cuda",
                "cuda-q" and "ensemble" over 8 device-resident chunks of
                T = 512, samples/s, and each kernel's launch count (one
-               per process call), read right after its own path.
+               per process call), read right after its own path;
+  6. serve   — the gateway: `serve_streams` on the card for "cuda-q"
+               (16,384 tenants, buckets 1024/4096/16384, 2,048 arrivals
+               per tick, at depth 1 and at `pipeline_depth=4`), "cuda"
+               and "ensemble" (4,096 tenants each), 480 history + 32
+               live samples per tenant, chunk_t 32, against the port's
+               CPU gateway on the same streams ("cuda-q" and "ensemble"
+               bit for bit, "cuda" flags outside the 1e-4 band); ticks,
+               resizes, (capacity, T) shapes, samples/s, per-call wall
+               p50/p99 from a synchronous run and kernel launches per
+               tick (counted over the depth-1 run, one per fused call);
+               then where the time goes: one more depth-1 run under
+               torch.profiler (device busy share) and a TickTracer
+               (host time in the dispatch and retire spans), and a probe
+               timing `SlotPool.acquire` / `release` alone.
 
-The last three lines are the kernels' JSON record, the card's name and
+The last three lines are the kernels' JSON record (`launches` from
+phase 5, `launches_serve` from phase 6), the card's name and
 power limit as nvidia-smi prints them, and {"ok": true, "device": ...}.
 It exits non-zero without a result when CUDA is unavailable or the
 package is not beside it.
@@ -1130,6 +1145,211 @@ def phase_ensemble_stream(seed, smi):
     return {"ensemble_scan": launches}
 
 
+# the serving phase: tenants, history, live, chunk_t, buckets, arrivals
+SERVE_LOADS = {
+    "cuda-q": (16_384, 480, 32, 32, (1024, 4096, 16_384), 2048),
+    "cuda": (4096, 480, 32, 32, (256, 1024, 4096), 512),
+    "ensemble": (4096, 480, 32, 32, (256, 1024, 4096), 512),
+}
+
+
+def _engine_opts(backend):
+    from repro_torch.fixedpoint import QFormat
+
+    opts = {}
+    if backend != "cuda":
+        opts["fmt"] = QFormat(32, 20)
+    if backend == "ensemble":
+        opts.update(detectors=ALL5, window=WINDOW)
+    return opts
+
+
+def _serve(backend, streams, device, **kw):
+    """One `serve_streams` run at `backend`'s serving load, with the
+    launch counts of the three kernels it may reach over the run."""
+    from repro_torch.kernels import ensemble_scan as ek
+    from repro_torch.kernels import teda_q_scan as qk
+    from repro_torch.kernels import teda_scan as fk
+    from repro_torch.launch.serve import serve_streams
+
+    _, _, _, chunk_t, buckets, arrivals = SERVE_LOADS[backend]
+    opts = dict(backend=backend, device=device, chunk_t=chunk_t,
+                buckets=buckets, arrivals_per_tick=arrivals,
+                queue_limit=2 * arrivals,
+                class_weights={"latency": 4.0, "bulk": 1.0},
+                **_engine_opts(backend))
+    opts.update(kw)
+    mods = {"teda_scan": fk, "teda_q_scan": qk, "ensemble_scan": ek}
+    for mod in mods.values():
+        mod.launches = 0
+    res = serve_streams(streams, **opts)
+    return res, {name: mod.launches for name, mod in mods.items()}
+
+
+def _serve_profiled(backend, streams):
+    """The depth-1 async gateway once more, under torch.profiler (device
+    activity only) and a TickTracer: (result, device microseconds,
+    host microseconds per span name)."""
+    from repro_torch.obs import TickTracer
+
+    tracer = TickTracer(capacity=1 << 17)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        res, _ = _serve(backend, streams, "cuda", measure_latency=False,
+                        tracer=tracer)
+        torch.cuda.synchronize()
+    dev_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if str(ev.device_type).endswith("CUDA"))
+    spans = {}
+    for ev in tracer.events():
+        if ev["ph"] == "X":
+            spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"]
+    return res, dev_us, spans
+
+
+def _pool_probe(backend, capacity, n=512):
+    """Milliseconds per `SlotPool.acquire(1)` and per `release` of one
+    slot at `capacity` slots with no resize (each reads the active mask
+    back to the host: one device sync)."""
+    from repro_torch.engine import SlotPool
+
+    pool = SlotPool(backend, buckets=(capacity,), **_engine_opts(backend))
+    pool.acquire(capacity // 2)
+    n = min(n, capacity // 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slots = [int(pool.acquire(1)[0]) for _ in range(n)]
+    t1 = time.perf_counter()
+    for slot in slots:
+        pool.release([slot])
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e3 / n, (t2 - t1) * 1e3 / n
+
+
+def _serve_same(tag, backend, a, b, m_of):
+    """Per-request verdicts of two gateway runs: the Q path bit for bit;
+    "cuda" flags equal outside the 1e-4 band around the threshold (from
+    `a`'s ecc); "ensemble" bitmask and vote bit for bit."""
+    check(a["flagged"] == b["flagged"] or backend == "cuda",
+          f"serve {tag}: flagged tenants differ")
+    sa, sb = a["_scheduler"], b["_scheduler"]
+    n_out = 0
+    for rid, row in a["per_request"].items():
+        other = b["per_request"][rid]
+        check(row["samples"] == other["samples"],
+              f"serve {tag}: {rid} samples differ")
+        ra, rb = sa.results(rid), sb.results(rid)
+        if backend == "cuda":
+            ecc = torch.from_numpy(ra["ecc"]).double()[:, None]
+            k = torch.arange(1, ecc.shape[0] + 1,
+                             dtype=torch.float64)[:, None]
+            _, bad = _band_mismatch(ecc, m_of[rid], k,
+                                    torch.from_numpy(ra["outlier"])[:, None],
+                                    torch.from_numpy(rb["outlier"])[:, None])
+            n_out += bad
+            continue
+        check(row["flags"] == other["flags"]
+              and row["det_flags"] == other["det_flags"],
+              f"serve {tag}: {rid} flag counts differ")
+        check(np.array_equal(ra["outlier"], rb["outlier"])
+              and np.array_equal(ra["ecc"], rb["ecc"]),
+              f"serve {tag}: {rid} verdicts differ")
+    check(n_out == 0, f"serve {tag}: {n_out} flags differ outside the "
+          "threshold band")
+
+
+def phase_serve(seed, smi):
+    """The gateway main path, `serve_streams` on the card, per backend:
+    the GPU gateway against the port's own CPU gateway on the same
+    streams, the async loop at depth 1 (and for "cuda-q" at depth 4),
+    then a synchronous run for per-call wall times and a profiled run
+    with the pool probe for where the time goes.  Returns each kernel's
+    launches during its backend's depth-1 run."""
+    from repro_torch.launch.serve import _demo_streams
+
+    launches = {}
+    for backend, (n, hist, live, _, buckets, _) in SERVE_LOADS.items():
+        streams = _demo_streams(n, hist, live, seed=seed)
+        m_of = {s[0]: s[3] for s in streams}
+        total = n * (hist + live)
+        cpu, _ = _serve(backend, streams, "cpu", collect=True,
+                        measure_latency=False)
+        gpu, used = _serve(backend, streams, "cuda", collect=True,
+                           measure_latency=False)
+        sched = gpu["_scheduler"]
+        calls = int(sched._c_calls.value)
+        kname = {"cuda": "teda_scan", "cuda-q": "teda_q_scan",
+                 "ensemble": "ensemble_scan"}[backend]
+        check(used[kname] == calls and calls > 0
+              and sum(used.values()) == calls,
+              f"serve {backend}: {used} kernel launches for {calls} fused "
+              "calls")
+        launches[kname] = used[kname]
+        check(gpu["requests"] == n == sched.completed
+              and gpu["samples"] == total,
+              f"serve {backend}: {sched.completed}/{n} requests completed")
+        check(gpu["pool"]["resizes"] >= 2
+              and gpu["pool"]["bucket"] == buckets[0]
+              and max(c for c, _ in gpu["programs"]) == buckets[-1],
+              f"serve {backend}: the pool did not grow through the ladder "
+              f"and shrink back ({gpu['pool']})")
+        check(bool(gpu["flagged"]), f"serve {backend}: no tenant flagged")
+        _serve_same(f"{backend} gpu vs cpu", backend, cpu, gpu, m_of)
+        runs = [("depth 1", gpu)]
+        if backend == "cuda-q":
+            deep, used4 = _serve(backend, streams, "cuda", collect=True,
+                                 measure_latency=False, pipeline_depth=4)
+            check(used4[kname] == int(deep["_scheduler"]._c_calls.value),
+                  f"serve {backend} depth 4: {used4} launches")
+            _serve_same(f"{backend} depth 4 vs depth 1", backend, gpu, deep,
+                        m_of)
+            runs.append(("depth 4", deep))
+        sync, _ = _serve(backend, streams, "cuda", measure_latency=True)
+        walls = np.array([c["wall_s"] for c in sync["_scheduler"].call_log])
+        check(sync["flagged"] == gpu["flagged"] or backend == "cuda",
+              f"serve {backend}: the synchronous run flagged other tenants")
+        for tag, res in runs:
+            log(f"[serve] {backend} {tag}: {n} tenants x ({hist} history + "
+                f"{live} live), chunk_t {SERVE_LOADS[backend][3]}, buckets "
+                f"{buckets}: {res['ticks']} ticks, {res['requests']} "
+                f"completed, {res['pool']['resizes']} resizes, programs "
+                f"{res['programs']}, {res['samples_per_s']:.6e} samples/s "
+                f"({res['wall_s']:.3f} s), {len(res['flagged'])} tenants "
+                f"flagged, {res['short_ticks']} short ticks on {smi}")
+        log(f"[serve] {backend}: {used[kname]} {kname} launches in "
+            f"{gpu['ticks']} ticks ({used[kname] / gpu['ticks']:.3f} per "
+            f"tick); synchronous run: per-call wall p50 "
+            f"{np.percentile(walls, 50) * 1e3:.3f} ms, p99 "
+            f"{np.percentile(walls, 99) * 1e3:.3f} ms over {len(walls)} "
+            f"calls, {sync['samples_per_s']:.6e} samples/s; CPU gateway "
+            f"{cpu['samples_per_s']:.6e} samples/s (plain versions)")
+        prof, dev_us, spans = _serve_profiled(backend, streams)
+        acq_ms, rel_ms = _pool_probe(backend, buckets[-1])
+        wall_us = prof["wall_s"] * 1e6
+        if dev_us > 0:
+            busy = (f"device busy {dev_us / 1e3:.3f} ms = "
+                    f"{100.0 * dev_us / wall_us:.2f}% of the wall")
+        else:
+            busy = "device busy not measured (the profiler saw no device time)"
+        dispatch_s = spans.get("dispatch", 0.0) / 1e6
+        retire_s = spans.get("retire", 0.0) / 1e6
+        pool_s = n * (acq_ms + rel_ms) / 1e3
+        log(f"[serve] {backend} where the time goes (depth 1 again, "
+            f"profiled): wall {prof['wall_s']:.3f} s, {busy}; host in "
+            f"dispatch spans {dispatch_s:.3f} s (the engine call: x and "
+            f"vlens upload, enqueue), in retire spans {retire_s:.3f} s "
+            f"(the .cpu() fetches); pool probe at {buckets[-1]} slots: "
+            f"acquire {acq_ms:.4f} ms, release {rel_ms:.4f} ms per tenant, "
+            f"x {n} tenants = {pool_s:.3f} s; the rest by subtraction "
+            f"{prof['wall_s'] - dispatch_s - retire_s - pool_s:.3f} s (feed "
+            f"loop, per-member take and accounting loops, admission)")
+        log(f"[serve] {backend}: GPU gateway equals the CPU gateway"
+            + (" and the depth-4 pipeline" if len(runs) > 1 else "")
+            + (" (flags outside the 1e-4 band)" if backend == "cuda"
+               else " bit for bit"))
+    return launches
+
+
 def profile_window(backend, eng, feed, warmup=2):
     """Where an engine call's time goes: torch.profiler over the
     `process` calls of `feed` but the first `warmup`, which the profiler
@@ -1224,14 +1444,17 @@ def main(argv=None):
     phase_ensemble_engine(args.seed)
     launches = phase_stream(args.seed, smi)
     launches.update(phase_ensemble_stream(args.seed, smi))
+    served = phase_serve(args.seed, smi)
     for name, rec in records.items():
         rec["launches"] = launches[name]
+        rec["launches_serve"] = served[name]
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "repro" or m.startswith("repro.")
                   for m in sys.modules), "the JAX package was imported")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_serve", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in records.values()]}))
     print(smi)

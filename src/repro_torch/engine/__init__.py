@@ -2,7 +2,8 @@
 
 `StreamEngine` carries exact per-stream state across arbitrary-length
 chunks for every registered backend ("scan", "cuda", "cuda-q"), with
-ragged multi-tenant attach/detach/reset slots.
+ragged multi-tenant attach/detach/reset slots; `SlotPool` keeps one
+engine per capacity bucket and re-pads the state across them.
 """
 from repro_torch.engine.state import (EngineState, engine_attach,
                                       engine_detach, engine_init,
@@ -12,10 +13,12 @@ from repro_torch.engine.state import (EngineState, engine_attach,
 from repro_torch.engine.backends import (Backend, get_backend,
                                          list_backends, register_backend)
 from repro_torch.engine.engine import StreamEngine
+from repro_torch.engine.pool import PoolFull, SlotPool
 
 __all__ = [
     "Backend", "get_backend", "list_backends", "register_backend",
-    "EngineState", "StreamEngine", "engine_init", "engine_process",
-    "engine_step", "engine_reset", "engine_attach", "engine_detach",
-    "engine_state_from_numpy", "slot_mask",
+    "EngineState", "StreamEngine", "SlotPool", "PoolFull",
+    "engine_init", "engine_process", "engine_step", "engine_reset",
+    "engine_attach", "engine_detach", "engine_state_from_numpy",
+    "slot_mask",
 ]

@@ -1,9 +1,10 @@
 """Import hygiene of the PyTorch port.
 
 `repro_torch` and `chip_smoke.py` must import neither JAX nor the JAX
-package `repro`: a fresh interpreter imports the port and runs a CPU
-engine step, after which neither is in `sys.modules`; and no source
-file of the port names them in an import.
+package `repro`: a fresh interpreter imports the port, runs a CPU
+engine step per backend, fills a `SlotPool` and serves a few streams
+through `serve_streams`, after which neither is in `sys.modules`; and
+no source file of the port names them in an import.
 """
 import os
 import re
@@ -29,6 +30,14 @@ for backend in ("scan", "cuda", "cuda-q", "ensemble"):
                        detectors=("teda", "rde", "zscore", "hst", "teda-q"))
     out = eng.process(np.ones((4, 8), np.float32))
     assert out["ecc"].shape == (4, 8)
+from repro_torch.engine import SlotPool
+from repro_torch.launch.serve import _demo_streams, serve_streams
+pool = SlotPool("cuda-q", buckets=(2, 4), device="cpu", fmt=QFormat(32, 20))
+pool.acquire(3)
+assert pool.capacity == 4
+res = serve_streams(_demo_streams(3, 8, 2), backend="cuda-q", device="cpu",
+                    fmt=QFormat(32, 20), buckets=(2, 4), chunk_t=4)
+assert res["requests"] == 3 and res["samples"] == 30
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
