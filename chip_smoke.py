@@ -62,10 +62,26 @@ CUDA toolkit.  The phases, each of which raises on failure:
                then where the time goes: one more depth-1 run under
                torch.profiler (device busy share) and a TickTracer
                (host time in the dispatch and retire spans), and a probe
-               timing `SlotPool.acquire` / `release` alone.
+               timing `SlotPool.acquire` / `release` alone;
+  7. fleet   — the sharded gateway: `serve_streams(shards=K,
+               rebalance_every=4)` on the card for "cuda-q" (phase 6's
+               16,384 tenants over 4 shards, per-shard buckets
+               1024/4096/8192), "ensemble" and "cuda" (4,096 tenants over
+               2 shards, 256/1024/4096), against phase 6's single-pool
+               GPU run ("cuda-q" and "ensemble" bit for bit, "cuda" ecc
+               bit for bit and flags outside the band), with live
+               migrations (> 0); samples/s, ticks, launches per tick (one
+               per shard call), migrations, final imbalance, resizes per
+               shard, and a probe timing one migration; then the channel
+               split: StreamEngine(65536, "cuda" / "cuda-q",
+               devices=[cuda:0, cuda:0]) (and [cuda:0, cuda:1] with a
+               second card) over phase 5's chunks, bit-exact with the
+               unsplit engine, two launches per call, the current device
+               unchanged.
 
 The last three lines are the kernels' JSON record (`launches` from
-phase 5, `launches_serve` from phase 6), the card's name and
+phase 5, `launches_serve` from phase 6, `launches_fleet` from phase 7's
+gateway runs), the card's name and
 power limit as nvidia-smi prints them, and {"ok": true, "device": ...}.
 It exits non-zero without a result when CUDA is unavailable or the
 package is not beside it.
@@ -1151,6 +1167,8 @@ SERVE_LOADS = {
     "cuda": (4096, 480, 32, 32, (256, 1024, 4096), 512),
     "ensemble": (4096, 480, 32, 32, (256, 1024, 4096), 512),
 }
+KERNEL_OF = {"cuda": "teda_scan", "cuda-q": "teda_q_scan",
+             "ensemble": "ensemble_scan"}
 
 
 def _engine_opts(backend):
@@ -1264,10 +1282,11 @@ def phase_serve(seed, smi):
     streams, the async loop at depth 1 (and for "cuda-q" at depth 4),
     then a synchronous run for per-call wall times and a profiled run
     with the pool probe for where the time goes.  Returns each kernel's
-    launches during its backend's depth-1 run."""
+    launches during its backend's depth-1 run, and each backend's
+    depth-1 GPU run (phase 7's single-pool reference)."""
     from repro_torch.launch.serve import _demo_streams
 
-    launches = {}
+    launches, singles = {}, {}
     for backend, (n, hist, live, _, buckets, _) in SERVE_LOADS.items():
         streams = _demo_streams(n, hist, live, seed=seed)
         m_of = {s[0]: s[3] for s in streams}
@@ -1278,8 +1297,7 @@ def phase_serve(seed, smi):
                            measure_latency=False)
         sched = gpu["_scheduler"]
         calls = int(sched._c_calls.value)
-        kname = {"cuda": "teda_scan", "cuda-q": "teda_q_scan",
-                 "ensemble": "ensemble_scan"}[backend]
+        kname = KERNEL_OF[backend]
         check(used[kname] == calls and calls > 0
               and sum(used.values()) == calls,
               f"serve {backend}: {used} kernel launches for {calls} fused "
@@ -1295,6 +1313,7 @@ def phase_serve(seed, smi):
               f"and shrink back ({gpu['pool']})")
         check(bool(gpu["flagged"]), f"serve {backend}: no tenant flagged")
         _serve_same(f"{backend} gpu vs cpu", backend, cpu, gpu, m_of)
+        singles[backend] = gpu
         runs = [("depth 1", gpu)]
         if backend == "cuda-q":
             deep, used4 = _serve(backend, streams, "cuda", collect=True,
@@ -1347,7 +1366,212 @@ def phase_serve(seed, smi):
             + (" and the depth-4 pipeline" if len(runs) > 1 else "")
             + (" (flags outside the 1e-4 band)" if backend == "cuda"
                else " bit for bit"))
+    return launches, singles
+
+# the fleet phase: shards and per-shard buckets; tenants, history, live,
+# chunk_t and arrivals per tick are phase 6's (SERVE_LOADS)
+FLEET_LOADS = {
+    "cuda-q": (4, (1024, 4096, 8192)),
+    "ensemble": (2, (256, 1024, 4096)),
+    "cuda": (2, (256, 1024, 4096)),
+}
+REBALANCE_EVERY = 4
+
+
+def _migrate_probe(backend, n=256):
+    """Milliseconds per `ShardedPool.migrate` of one warm stream between
+    two shards of 4,096 slots with no resize, and per one-slot state
+    fetch alone (`_slot_words`, the device-to-host copy inside it)."""
+    from repro_torch.engine import ShardedPool
+
+    pool = ShardedPool(backend, shards=2, buckets=(4096,),
+                       **_engine_opts(backend))
+    rids = [f"p{i}" for i in range(2 * n)]
+    for rid in rids:
+        pool.acquire(rid, shard=0)
+    x = torch.randn((32, 4096), device="cuda")
+    eng = pool.pools[0].engine
+    eng.process(_engine_input(backend, x))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for slot in range(n):
+        eng._slot_words(slot)
+    t1 = time.perf_counter()
+    for rid in rids[:n]:
+        pool.migrate(rid, 1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(pool.occupancies() == [n, n] and pool.migrations == n,
+          f"migrate probe {backend}: {pool.occupancies()}")
+    return (t2 - t1) * 1e3 / n, (t1 - t0) * 1e3 / n
+
+
+def _engine_input(backend, x):
+    """The engine's input for `backend`: Q int32 on the Q path."""
+    if backend != "cuda-q":
+        return x
+    from repro_torch.fixedpoint import QFormat
+    return QFormat(32, 20).quantize(x)
+
+
+def phase_fleet(seed, smi, singles):
+    """Phase 7: the sharded gateway on the card, `serve_streams(shards=K,
+    rebalance_every=4)` per backend over phase 6's tenants, against
+    phase 6's single-pool GPU run of the same streams ("cuda-q" and
+    "ensemble" bit for bit, "cuda" ecc bit for bit and flags outside the
+    band), with migrations > 0; then the engine's channel split.  Returns
+    each kernel's launches during its backend's fleet run."""
+    from repro_torch.launch.serve import _demo_streams
+
+    launches = {}
+    for backend, (shards, buckets) in FLEET_LOADS.items():
+        n, hist, live, _, _, _ = SERVE_LOADS[backend]
+        streams = _demo_streams(n, hist, live, seed=seed)
+        m_of = {s[0]: s[3] for s in streams}
+        single = singles[backend]
+        res, used = _serve(backend, streams, "cuda", collect=True,
+                           measure_latency=False, shards=shards,
+                           rebalance_every=REBALANCE_EVERY, buckets=buckets)
+        sched = res["_scheduler"]
+        calls, ticks = int(sched._c_calls.value), res["ticks"]
+        kname = KERNEL_OF[backend]
+        check(used[kname] == calls and sum(used.values()) == calls
+              and 0 < calls <= shards * ticks,
+              f"fleet {backend}: {used} kernel launches for {calls} fused "
+              f"calls in {ticks} ticks over {shards} shards")
+        launches[kname] = used[kname]
+        check(res["requests"] == n == sched.completed
+              and res["shards"] == shards,
+              f"fleet {backend}: {sched.completed}/{n} requests completed")
+        check(res["migrations"] > 0, f"fleet {backend}: no migration")
+        check(sum(p["migrations"] for p in res["per_request"].values())
+              == res["migrations"],
+              f"fleet {backend}: per-request migrations do not add up")
+        _serve_same(f"fleet {backend} vs single pool", backend, single, res,
+                    m_of)
+        if backend == "cuda":
+            for rid in m_of:
+                check(np.array_equal(
+                    single["_scheduler"].results(rid)["ecc"].view(np.int32),
+                    sched.results(rid)["ecc"].view(np.int32)),
+                    f"fleet cuda: {rid} ecc differs from the single pool")
+        per_shard = [p["resizes"] for p in res["pool"]["per_shard"]]
+        log(f"[fleet] {backend} over {shards} shards: {n} tenants x ({hist} "
+            f"history + {live} live), per-shard buckets {buckets}, "
+            f"rebalance every {REBALANCE_EVERY} ticks: {ticks} ticks, "
+            f"{res['samples_per_s']:.6e} samples/s ({res['wall_s']:.3f} s; "
+            f"single pool {single['samples_per_s']:.6e}, ratio "
+            f"{res['samples_per_s'] / single['samples_per_s']:.3f}), "
+            f"{used[kname]} {kname} launches = {used[kname] / ticks:.3f} per "
+            f"tick, {res['migrations']} migrations, final imbalance "
+            f"{res['imbalance']}, resizes per shard {per_shard}, "
+            f"{len(res['flagged'])} tenants flagged on {smi}")
+        log(f"[fleet] {backend}: the {shards}-shard gateway equals the "
+            "single pool" + (" (ecc bit for bit, flags outside the 1e-4 "
+                             "band)" if backend == "cuda" else " bit for bit"))
+        del res, sched
+        mig_ms, fetch_ms = _migrate_probe(backend)
+        log(f"[fleet] {backend} migrate probe (2 shards x 4,096 slots): "
+            f"{mig_ms:.4f} ms per migrate, of which the one-slot state "
+            f"fetch alone {fetch_ms:.4f} ms")
+    phase_split(seed, smi)
     return launches
+
+
+def phase_split(seed, smi):
+    """Phase 7(d): StreamEngine(65536, backend, devices=[cuda:0, cuda:0])
+    (and [cuda:0, cuda:1] when a second card is present) for "cuda" and
+    "cuda-q" over phase 5's 8 chunks against the unsplit engine: every
+    output and the final state bit for bit, exactly two kernel launches
+    per `process`, and the caller's current device unchanged."""
+    from repro_torch.engine import StreamEngine
+    from repro_torch.fixedpoint import QFormat
+    from repro_torch.kernels import teda_q_scan as qk
+    from repro_torch.kernels import teda_scan as fk
+
+    dev = torch.device("cuda")
+    c, t_len = C_WIDE, T_CHUNK
+    chunks = _spiked_chunks(torch.Generator(device=dev).manual_seed(seed + 2),
+                            c, t_len, N_CHUNKS)
+    layouts = [["cuda:0", "cuda:0"]]
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        layouts.append(["cuda:0", "cuda:1"])
+    else:
+        log("[split] one card: the split runs its two groups on cuda:0")
+    for backend, mod in (("cuda", fk), ("cuda-q", qk)):
+        opts = {"fmt": QFormat(32, 20)} if backend == "cuda-q" else {}
+        feed = [_engine_input(backend, ch) for ch in chunks]
+        for devs in layouts:
+            one = StreamEngine(c, backend, **opts)
+            two = StreamEngine(c, backend, devices=devs, **opts)
+            before = torch.cuda.current_device()
+            walls = {"single": 0.0, "split": 0.0}
+            for i, ch in enumerate(feed):
+                torch.cuda.synchronize()
+                n0, t0 = mod.launches, time.perf_counter()
+                a = one.process(ch)
+                torch.cuda.synchronize()
+                n1, t1 = mod.launches, time.perf_counter()
+                b = two.process(ch)
+                torch.cuda.synchronize()
+                n2, t2 = mod.launches, time.perf_counter()
+                walls["single"] += t1 - t0
+                walls["split"] += t2 - t1
+                check(n1 - n0 == 1 and n2 - n1 == 2,
+                      f"split {backend} {devs}: {n2 - n1} launches for one "
+                      f"split process call (2 wanted), {n1 - n0} unsplit")
+                check(torch.cuda.current_device() == before,
+                      f"split {backend} {devs}: the current device moved "
+                      f"from {before} to {torch.cuda.current_device()}")
+                check(b["ecc"].device == a["ecc"].device
+                      and torch.equal(_words(a["ecc"]), _words(b["ecc"]))
+                      and torch.equal(a["outlier"], b["outlier"]),
+                      f"split {backend} {devs}: chunk {i} outputs differ")
+            for f in ("k", "mean", "var", "active"):
+                va, vb = getattr(one.state, f), getattr(two.state, f)
+                same = (torch.equal(va, vb) if f == "active"
+                        else torch.equal(_words(va), _words(vb)))
+                check(same, f"split {backend} {devs}: final {f} differs")
+            n_s = N_CHUNKS * t_len * c
+            log(f"[split] {backend} devices={devs}: {N_CHUNKS} chunks of "
+                f"({t_len}, {c}) bit-exact with the unsplit engine, final "
+                f"state included; 2 launches per process; current device "
+                f"{before} unchanged; synchronous wall per call "
+                f"{walls['split'] * 1e3 / N_CHUNKS:.3f} ms split, "
+                f"{walls['single'] * 1e3 / N_CHUNKS:.3f} ms unsplit "
+                f"({n_s / walls['split']:.6e} / "
+                f"{n_s / walls['single']:.6e} samples/s) on {smi}")
+            del one, two
+    if n_cards > 1:
+        _fleet_over_cards(seed, smi, 4 if n_cards >= 4 else 2)
+
+
+def _fleet_over_cards(seed, smi, n_cards):
+    """With several cards: a 2-shard "cuda-q" gateway whose shards take
+    n_cards / 2 cards each (`shard_devices`, each shard's engines split
+    over their cards) against the single pool on cuda:0, over 2,048
+    tenants, bit for bit, with the current device unchanged."""
+    from repro_torch.launch.serve import _demo_streams
+
+    streams = _demo_streams(2048, 480, 32, seed=seed)
+    load = dict(collect=True, measure_latency=False, arrivals_per_tick=512,
+                queue_limit=1024, buckets=(256, 1024, 2048))
+    before = torch.cuda.current_device()
+    single, _ = _serve("cuda-q", streams, "cuda", **load)
+    cards = [f"cuda:{i}" for i in range(n_cards)]
+    fleet, used = _serve("cuda-q", streams, None, shards=2,
+                         rebalance_every=REBALANCE_EVERY,
+                         shard_devices=cards, **load)
+    _serve_same(f"fleet over {cards}", "cuda-q", single, fleet,
+                {s[0]: s[3] for s in streams})
+    check(torch.cuda.current_device() == before,
+          f"fleet over {cards}: the current device moved")
+    log(f"[split] cuda-q 2-shard gateway over {cards} ({n_cards // 2} cards "
+        f"per shard): 2048 tenants bit for bit with the single pool on "
+        f"cuda:0, {fleet['migrations']} migrations, {used['teda_q_scan']} "
+        f"launches in {fleet['ticks']} ticks, {fleet['samples_per_s']:.6e} "
+        f"samples/s (single {single['samples_per_s']:.6e}) on {smi}")
 
 
 def profile_window(backend, eng, feed, warmup=2):
@@ -1444,16 +1668,20 @@ def main(argv=None):
     phase_ensemble_engine(args.seed)
     launches = phase_stream(args.seed, smi)
     launches.update(phase_ensemble_stream(args.seed, smi))
-    served = phase_serve(args.seed, smi)
+    served, singles = phase_serve(args.seed, smi)
+    fleet = phase_fleet(args.seed, smi, singles)
+    del singles
     for name, rec in records.items():
         rec["launches"] = launches[name]
         rec["launches_serve"] = served[name]
+        rec["launches_fleet"] = fleet[name]
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "repro" or m.startswith("repro.")
                   for m in sys.modules), "the JAX package was imported")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_serve", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "launches_serve", "launches_fleet", "max_abs_err", "ms",
+            "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in records.values()]}))

@@ -63,6 +63,7 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "qformat.cuh"
 
 namespace {
@@ -468,8 +469,8 @@ int run(const void* x, const void* vlen, const void* k0,
         long long T, long long C, int K, int window, int rows,
         const int (&types)[kMaxK], int hst_off, int tq_off, int word_len,
         int frac_len, int rounding, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   if (K < 1 || K > kMaxK || window < 1) return (int)cudaErrorInvalidValue;
   Layout L;
   L.K = K;

@@ -10,6 +10,7 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "qformat.cuh"
 
 namespace {
@@ -32,8 +33,8 @@ __global__ void qdiv_probe_kernel(const int64_t* __restrict__ n,
 extern "C" int qdiv_probe_u32(const void* n, const void* d, void* out,
                               long long count, int shift, int round,
                               int qmax, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   if (count <= 0) return 0;
   const unsigned blocks = (unsigned)((count + 255) / 256);
   qdiv_probe_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(

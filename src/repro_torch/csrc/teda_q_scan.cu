@@ -35,6 +35,7 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "qformat.cuh"
 
 namespace {
@@ -115,8 +116,8 @@ extern "C" int teda_q_scan_i32(const void* x, const void* msq1,
                                void* fvar, long long T, long long C,
                                int word_len, int frac_len, int rounding,
                                int full, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   const QFmt f = make_qfmt(word_len, frac_len, rounding);
   const unsigned blocks = (unsigned)((C + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -50,6 +50,8 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;  // channels per block
@@ -238,17 +240,18 @@ extern "C" int teda_scan_f32(const void* x, const void* m, const void* vlen,
                              void* fk, void* fsum, void* fvar, long long T,
                              long long C, int full, int device,
                              void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   const unsigned blocks = (unsigned)((C + kThreads - 1) / kThreads);
   const bool vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = full ? launch<true>(blocks, s, x, m, vlen, k0, sum0, var0, mean_out,
-                            var_out, ecc_out, outlier_out, fk, fsum, fvar, T,
-                            C, vec)
-             : launch<false>(blocks, s, x, m, vlen, k0, sum0, var0, nullptr,
-                             nullptr, ecc_out, outlier_out, fk, fsum, fvar, T,
-                             C, vec);
+  const cudaError_t err =
+      full ? launch<true>(blocks, s, x, m, vlen, k0, sum0, var0, mean_out,
+                          var_out, ecc_out, outlier_out, fk, fsum, fvar, T, C,
+                          vec)
+           : launch<false>(blocks, s, x, m, vlen, k0, sum0, var0, nullptr,
+                           nullptr, ecc_out, outlier_out, fk, fsum, fvar, T,
+                           C, vec);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

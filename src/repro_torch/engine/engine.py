@@ -18,8 +18,15 @@ uploaded again only when a slot call changes them.
 
 The engine runs on the CUDA device unless the caller asks for the CPU
 (`device="cpu"`, where the kernel backends run their plain versions);
-it never moves to the CPU on its own.  Not ported from the reference:
-the `mesh=` channel fan-out.
+it never moves to the CPU on its own.
+
+With `devices=[d0, d1, ...]` (the port's counterpart of the reference's
+`mesh=`), the slots split into D contiguous channel groups, one per
+device: each group's state lives on its device, and `process` runs one
+backend call per group on that device's current stream
+(`sharding.rules.make_channel_fanout`) and gathers the (T, C) outputs on
+`devices[0]`.  Channels are independent, so the split needs no
+collectives and changes no bit of any result.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from repro_torch.engine.state import (EngineState, engine_attach,
                                       engine_process, engine_reset,
                                       engine_state_from_numpy, slot_mask)
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, auto_name
+from repro_torch.sharding.rules import group_size, make_channel_fanout
 
 __all__ = ["StreamEngine", "resolve_device"]
 
@@ -52,6 +60,20 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _words(v: torch.Tensor) -> torch.Tensor:
+    """A 32-bit state tensor as its int32 words (int32 stays as it is)."""
+    return v.view(torch.int32)
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Device equality with a bare "cuda" read as the current card."""
+    def norm(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+    return norm(a) == norm(b)
+
+
 class StreamEngine:
     """Stateful multi-stream TEDA detector over `capacity` slots.
 
@@ -61,16 +83,29 @@ class StreamEngine:
     >>> eng.detach([3]); eng.attach([3], m=2.5)  # slot 3: new tenant
 
     Chunks may have any length T >= 1; state is carried exactly across
-    calls (bit for bit on the Q path).
+    calls (bit for bit on the Q path).  `devices=` splits the channels
+    over several devices (see the module docs); `device` must then be
+    None or `devices[0]`.
     """
 
     def __init__(self, capacity: int, backend: str = "scan", *,
-                 device=None, m: float = 3.0, fmt=None, block_t: int = 256,
-                 block_c: Optional[int] = None, lane_pad: int = 128,
-                 auto_attach: bool = True, registry=None, tracer=None,
-                 name: Optional[str] = None, **backend_opts):
-        self.device = resolve_device(device)
+                 device=None, devices=None, m: float = 3.0, fmt=None,
+                 block_t: int = 256, block_c: Optional[int] = None,
+                 lane_pad: int = 128, auto_attach: bool = True,
+                 registry=None, tracer=None, name: Optional[str] = None,
+                 **backend_opts):
         self.capacity = int(capacity)
+        if devices is None:
+            self.devices = [resolve_device(device)]
+        else:
+            self.devices = [resolve_device(d) for d in devices]
+            group_size(self.capacity, len(self.devices))
+            if device is not None and not _same_device(
+                    resolve_device(device), self.devices[0]):
+                raise ValueError(
+                    f"device={device!r} conflicts with devices[0]="
+                    f"{self.devices[0]}")
+        self.device = self.devices[0]
         self.default_m = float(m)
         # observability: process-call / samples-retired / program-shape
         # counters, labelled by engine instance
@@ -102,9 +137,19 @@ class StreamEngine:
         # member weights and vote thresholds on each call
         n_aux = int(getattr(self.backend, "aux_rows", 0) or 0)
         self._ensemble = n_aux > 0
-        self.state = engine_init(self.capacity, self.backend.state_dtype,
-                                 active=auto_attach, device=self.device,
-                                 aux_rows=n_aux)
+        n_dev = len(self.devices)
+        if self._ensemble and devices is not None:
+            raise ValueError(
+                "devices= fan-out is not supported with the ensemble "
+                "backend (the aux state axis is not sharded)")
+        # the packed state, one EngineState per channel group (a single
+        # group without `devices=`), each on its group's device
+        self._per = self.capacity // n_dev
+        self._parts = [engine_init(self._per, self.backend.state_dtype,
+                                   active=auto_attach, device=d,
+                                   aux_rows=n_aux) for d in self.devices]
+        self._fanout = (make_channel_fanout(self._core, self.devices)
+                        if n_dev > 1 else None)
         if self._ensemble:
             self._det_names = tuple(self.backend.detectors)
             self._det_w = np.broadcast_to(
@@ -123,11 +168,68 @@ class StreamEngine:
         # per-(capacity, T) program-shape record
         self._t_shapes: set = set()
 
+    # --------------------------------------------------------- state
+    @property
+    def state(self) -> EngineState:
+        """The packed state over all `capacity` slots.  With `devices=`
+        it is gathered on `devices[0]` (a copy: assign to `state` to
+        change it, which splits it back over the groups)."""
+        if len(self._parts) == 1:
+            return self._parts[0]
+        home = self.device
+        return EngineState(*(
+            torch.cat([getattr(p, f).to(home) for p in self._parts])
+            for f in ("k", "mean", "var", "active")), aux=None)
+
+    @state.setter
+    def state(self, st: EngineState) -> None:
+        if len(self._parts) == 1:
+            self._parts = [st]
+            return
+        per = self._per
+        self._parts = [EngineState(*(
+            getattr(st, f)[g * per:(g + 1) * per].to(d)
+            for f in ("k", "mean", "var", "active")), aux=None)
+            for g, d in enumerate(self.devices)]
+
+    def _slot_words(self, slot: int) -> np.ndarray:
+        """One slot's packed state as int32 words, fetched with a single
+        device-to-host copy of that slot alone: [k, mean, var] and then
+        its aux column (the Q path's int32 values and the float path's
+        float32 bits alike; aux payloads that alias NaN patterns stay
+        as they are)."""
+        g, j = divmod(int(slot), self._per)
+        st = self._parts[g]
+        cols = [_words(st.k)[j:j + 1], _words(st.mean)[j:j + 1],
+                _words(st.var)[j:j + 1]]
+        if st.aux is not None:
+            cols.append(_words(st.aux)[:, j])
+        return torch.cat(cols).cpu().numpy()
+
+    def _put_slot_words(self, slot: int, words: np.ndarray) -> None:
+        """Write `_slot_words` output into `slot`, word for word, on the
+        slot's device (new tensors: the state never changes in place)."""
+        g, j = divmod(int(slot), self._per)
+        st = self._parts[g]
+        w = torch.as_tensor(np.asarray(words, np.int32), device=st.k.device)
+
+        def put(v, row):
+            out = v.clone()
+            _words(out)[..., j] = row
+            return out
+
+        self._parts[g] = EngineState(
+            k=put(st.k, w[0]), mean=put(st.mean, w[1]),
+            var=put(st.var, w[2]), active=st.active,
+            aux=None if st.aux is None else put(st.aux, w[3:]))
+
     # ------------------------------------------------------ slot admin
     def _active_mask_host(self) -> np.ndarray:
-        arr = self.state.active
-        if self._active_cache[0] is not arr:
-            self._active_cache = (arr, arr.cpu().numpy())
+        key = tuple(p.active for p in self._parts)
+        cached = self._active_cache[0]
+        if cached is None or any(a is not b for a, b in zip(cached, key)):
+            self._active_cache = (key, np.concatenate(
+                [a.cpu().numpy() for a in key]))
         return self._active_cache[1]
 
     def attach(self, slots=None, n: Optional[int] = None, *,
@@ -318,10 +420,11 @@ class StreamEngine:
             self.set_m(None, m)
 
     # ------------------------------------------------------ processing
-    def _account(self, t_len: int, vc, had_vlens: bool, active) -> None:
+    def _account(self, t_len: int, vc, had_vlens: bool, amask) -> None:
         """Update the obs instruments for one `process` call.  `vc` is
         the host copy of valid_lens (None when the caller passed a
-        device tensor: the retired count is then skipped)."""
+        device tensor: the retired count is then skipped); `amask` the
+        host mask of the call's `active` subset, or None."""
         t_key = int(t_len)
         if t_key not in self._t_shapes:
             self._t_shapes.add(t_key)
@@ -332,15 +435,15 @@ class StreamEngine:
         self._c_calls.inc()
         if had_vlens and vc is None:
             return
-        amask = self._active_mask_host()
-        if active is not None:
-            amask = amask & slot_mask(active, self.capacity).numpy()
+        part = self._active_mask_host()
+        if amask is not None:
+            part = part & amask
         if not had_vlens:
-            retired = t_key * int(amask.sum())
+            retired = t_key * int(part.sum())
         elif vc.ndim == 0:
-            retired = int(vc) * int(amask.sum())
+            retired = int(vc) * int(part.sum())
         else:
-            retired = int(vc[amask].sum())
+            retired = int(vc[part].sum())
         if retired:
             self._c_samples.inc(retired)
 
@@ -365,23 +468,25 @@ class StreamEngine:
         The call does not synchronize: the returned tensors are on the
         engine's device and the kernels may still be running.
         """
-        x = torch.as_tensor(x, device=self.device)
+        split = self._fanout is not None
+        if not (split and isinstance(x, np.ndarray)):
+            # a split engine uploads each group's columns to its own
+            # device straight from host memory
+            x = torch.as_tensor(x, device=self.device)
         if x.ndim != 2 or x.shape[1] != self.capacity:
             raise ValueError(
                 f"chunk must be (T, {self.capacity}), got "
                 f"{tuple(x.shape)}")
         t_len = x.shape[0]
-        st = self.state
-        part = st.active if active is None else (
-            st.active & slot_mask(active, self.capacity, self.device))
-        vc = None
-        if valid_lens is None:
-            vl = torch.full((self.capacity,), t_len, dtype=torch.int32,
-                            device=self.device)
-        else:
+        amask = (None if active is None
+                 else slot_mask(active, self.capacity).numpy())
+        vc = vl = None
+        if valid_lens is not None:
             if isinstance(valid_lens, torch.Tensor) \
                     and valid_lens.device.type != "cpu":
                 vl = valid_lens.to(torch.int32).clamp(0, t_len)
+                if vl.ndim == 0:
+                    vl = vl.expand(self.capacity)
             else:
                 vc = np.asarray(valid_lens.cpu() if isinstance(
                     valid_lens, torch.Tensor) else valid_lens)
@@ -389,15 +494,12 @@ class StreamEngine:
                     raise ValueError(
                         f"valid_lens must lie in [0, T={t_len}], got "
                         f"[{vc.min()}, {vc.max()}]")
-                vl = torch.as_tensor(vc.astype(np.int32),
-                                     device=self.device)
-            if vl.ndim == 0:
-                vl = vl.expand(self.capacity)
-            elif vl.shape != (self.capacity,):
+                vl = (np.full((self.capacity,), int(vc), np.int32)
+                      if vc.ndim == 0 else vc.astype(np.int32))
+            if vl.shape != (self.capacity,):
                 raise ValueError(
                     f"valid_lens must be scalar or ({self.capacity},), "
                     f"got {tuple(vl.shape)}")
-        vl = torch.where(part, vl, 0)
         # uniform sensitivity passes a host scalar (filled in on the
         # device); only a mixed batch uploads the per-slot vector.  The
         # Q backend's quantize_m yields integer numpy values, which the
@@ -406,19 +508,42 @@ class StreamEngine:
         if (mv == mv[0]).all():
             mv = mv[0]
         m_arg = self.backend.quantize_m(mv)
-        self._account(t_len, vc, valid_lens is not None, active)
+        self._account(t_len, vc, valid_lens is not None, amask)
         sel = thr = None
         if self._ensemble:
             sel, thr = self._detector_rows()
-        new, outs = engine_process(
-            EngineState(k=st.k, mean=st.mean, var=st.var, active=vl > 0,
-                        aux=st.aux),
-            x, self.backend, m=m_arg, valid_lens=vl, sel=sel, thr=thr)
-        self.state = new._replace(active=st.active)
+        if split:
+            self._parts, outs = self._fanout(x, self._parts, amask, vl,
+                                             m_arg)
+        else:
+            new, outs = self._core(x, self._parts[0], amask, vl, m_arg,
+                                   sel, thr)
+            self._parts = [new]
         if self._ensemble:
             return {"ecc": outs["ecc"], "outlier": outs["outlier"],
                     "det_flags": outs["ecc"], "scores": outs["scores"]}
         return {"ecc": outs["ecc"], "outlier": outs["outlier"]}
+
+    def _core(self, x, st: EngineState, amask, vl, m_arg, sel=None,
+              thr=None):
+        """One backend call over one channel group, on its state's
+        device: fold occupancy and the `active` subset into the per-slot
+        valid lengths, advance the state.  Returns (state', outputs)."""
+        dev = st.k.device
+        x = torch.as_tensor(x, device=dev)
+        t_len, cap = x.shape
+        part = st.active if amask is None else (
+            st.active & torch.as_tensor(amask, device=dev))
+        if vl is None:
+            vl = torch.full((cap,), t_len, dtype=torch.int32, device=dev)
+        else:
+            vl = torch.as_tensor(vl, device=dev)
+        vl = torch.where(part, vl, 0)
+        new, outs = engine_process(
+            EngineState(k=st.k, mean=st.mean, var=st.var, active=vl > 0,
+                        aux=st.aux),
+            x, self.backend, m=m_arg, valid_lens=vl, sel=sel, thr=thr)
+        return new._replace(active=st.active), outs
 
     # ------------------------------------------------------- introspection
     @property

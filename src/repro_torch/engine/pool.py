@@ -61,8 +61,9 @@ class SlotPool:
     >>> out = pool.process(chunk)           # chunk: (T, pool.capacity)
     >>> pool.release([a])                   # may shrink back a bucket
 
-    All engine options (`device`, `fmt`, `block_t`, ...) pass through
-    to the per-bucket `StreamEngine`s.
+    All engine options (`device`, `devices`, `fmt`, `block_t`, ...)
+    pass through to the per-bucket `StreamEngine`s; with `devices=`
+    every bucket must divide by the number of devices.
     """
 
     def __init__(self, backend: str = "scan", *,
@@ -123,6 +124,8 @@ class SlotPool:
 
     @property
     def device(self) -> torch.device:
+        """The engines' device: the first of the group under `devices=`,
+        where every call's outputs are gathered."""
         return self.engine.device
 
     @property

@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_PATH = BUILD_DIR / "libteda_kernels.so"
 SOURCES = ("teda_scan.cu", "teda_q_scan.cu", "ensemble_scan.cu",
            "qdiv_probe.cu")
-HEADERS = ("qformat.cuh",)
+HEADERS = ("qformat.cuh", "device_guard.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # no --use_fast_math: it changes division and denormals on the float path
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]

@@ -79,9 +79,18 @@ inside the scheduler).  Per-request telemetry (queue wait, per-call
 (wall, retired) latency pairs, flag counts) is kept for the serving
 benchmark and the gateway in `launch/serve.py`.
 
+With `shards=K > 1` the pool is a `ShardedPool`: one logical pool over
+K shards with consistent-hash routing and live migration.  Each tick
+dispatches one fused call per shard with work, each fenced on (shard,
+slot) and carrying its own readiness event on its shard's device;
+`rebalance_every=N` runs the occupancy rebalancer before admission
+every N ticks, pinning streams with calls in flight.  A full shard
+blocks admission only for the class whose head routes there.
+`shard_devices=` spreads the shards over devices (equal groups, each
+shard's engines splitting their channels over its group).
+
 On the CPU (`device="cpu"`) the kernel backends run their plain
-versions and a call's outputs have landed when `process` returns.  Not
-ported from the reference: `shards > 1` (the sharded pool).
+versions and a call's outputs have landed when `process` returns.
 """
 from __future__ import annotations
 
@@ -93,7 +102,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.engine import PoolFull, SlotPool
+from repro_torch.engine import PoolFull, ShardedPool, SlotPool
 from repro_torch.obs import (EventBus, LATENCY_MS_BUCKETS, MetricsRegistry,
                              NULL_TRACER, TICK_BUCKETS, auto_name)
 
@@ -151,8 +160,8 @@ class RequestStats:
     admitted_tick: Optional[int] = None
     done_tick: Optional[int] = None
     slot: Optional[int] = None
-    # sharded scheduling only (not ported: always None and 0 here): the
-    # current shard and how many times the rebalancer moved this stream
+    # sharded scheduling only: the current shard and how many times the
+    # rebalancer moved this stream
     shard: Optional[int] = None
     migrations: int = 0
     samples: int = 0
@@ -178,13 +187,15 @@ class RequestStats:
 class _Run:
     """Internal per-request runtime record (admitted requests only)."""
 
-    __slots__ = ("req", "slot", "pending", "cursor", "phase",
+    __slots__ = ("req", "slot", "shard", "pending", "cursor", "phase",
                  "stats", "ecc_parts", "outlier_parts", "hist_len",
                  "consumed", "inflight")
 
-    def __init__(self, req: Request, slot: int, stats: RequestStats):
+    def __init__(self, req: Request, slot: int, stats: RequestStats,
+                 shard: int = 0):
         self.req = req
         self.slot = slot
+        self.shard = shard
         self.pending = np.asarray(req.history, np.float32).reshape(-1)
         self.cursor = 0
         # the replayed prefix: everything backlogged at admission is
@@ -200,6 +211,12 @@ class _Run:
     @property
     def avail(self) -> int:
         return self.pending.shape[0] - self.cursor
+
+    @property
+    def place(self) -> Tuple[int, int]:
+        """(shard, local slot) — the fencing key: local slot indices
+        collide across shards, the pair never does."""
+        return (self.shard, self.slot)
 
     def push(self, samples: np.ndarray) -> None:
         samples = np.asarray(samples, np.float32).reshape(-1)
@@ -224,9 +241,10 @@ class _InFlight:
     point)."""
 
     __slots__ = ("out", "members", "t_len", "tick", "t0", "sync_wall",
-                 "done")
+                 "done", "shard")
 
-    def __init__(self, out, members, t_len, tick, t0, sync_wall, done):
+    def __init__(self, out, members, t_len, tick, t0, sync_wall, done,
+                 shard=None):
         self.out = out              # {"ecc", "outlier"} device tensors
         self.members = members      # [(run, col, n)] at dispatch time
         self.t_len = t_len
@@ -236,6 +254,7 @@ class _InFlight:
         # torch.cuda.Event recorded on the engine's stream right after
         # the dispatch; None on the CPU, where outputs land at return
         self.done = done
+        self.shard = shard          # the call's shard (sharded pools)
 
 
 def _host_ready(inf: _InFlight) -> bool:
@@ -261,8 +280,10 @@ class BatchingScheduler:
     one fused ragged engine call retiring min(pending, t) samples per
     slot on the adaptive (t, C) program, retire the *previous* tick's
     host-fetched outputs, complete what finished.  All engine options
-    (`device`, `fmt`, ...) pass through to the pool; `shards` must be 1
-    (the sharded pool is not ported).
+    (`device`, `fmt`, ...) pass through to the pool.  `shards=K > 1`
+    serves over a `ShardedPool` (see the module docs), with
+    `shard_devices`, `ring_vnodes`, `rebalance_every` (0: never) and
+    `rebalance_threshold` passed to it.
     """
 
     def __init__(self, backend: str = "scan", *,
@@ -275,7 +296,10 @@ class BatchingScheduler:
                  call_log_len: int = 4096,
                  latency_log_len: int = 4096,
                  class_weights: Optional[Dict[str, float]] = None,
-                 shards: int = 1,
+                 shards: int = 1, shard_devices=None,
+                 ring_vnodes: int = 128,
+                 rebalance_every: int = 0,
+                 rebalance_threshold: int = 2,
                  registry=None, tracer=None,
                  name: Optional[str] = None,
                  **engine_opts):
@@ -285,13 +309,6 @@ class BatchingScheduler:
             raise ValueError(
                 f"decode_t must lie in [1, chunk_t={chunk_t}], "
                 f"got {decode_t}")
-        if int(shards) < 1:
-            raise ValueError(f"shards must be >= 1, got {shards}")
-        if int(shards) > 1:
-            raise NotImplementedError(
-                f"shards={shards}: the sharded pool (consistent-hash "
-                "routing, live migration) is not ported yet; it is "
-                "ROADMAP.md section 1, item 4")
         # observability (repro_torch.obs): the scheduler's counters
         # live in registry instruments — `stats()` reads them back, the
         # tracer records tick spans, the event bus streams verdicts at
@@ -302,15 +319,37 @@ class BatchingScheduler:
         self.name = auto_name("sched") if name is None else str(name)
         self.events = EventBus()
         self._init_instruments()
-        self.pool = SlotPool(backend, buckets=buckets, m=m,
-                             registry=self.registry, tracer=self.tracer,
-                             name=f"{self.name}/pool", **engine_opts)
+        # shards > 1 swaps the single SlotPool for a ShardedPool: one
+        # logical pool over K shards with consistent-hash routing and
+        # live migration; each tick dispatches one fused call per shard
+        # with work, async and fenced exactly like the single pool
+        self.n_shards = int(shards)
+        if self.n_shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        self._sharded = self.n_shards > 1
+        self.rebalance_every = int(rebalance_every)
+        if self.rebalance_every < 0:
+            raise ValueError(
+                f"rebalance_every must be >= 0, got {rebalance_every}")
+        if self._sharded:
+            self.pool = ShardedPool(
+                backend, shards=self.n_shards, buckets=buckets, m=m,
+                vnodes=ring_vnodes, devices=shard_devices,
+                rebalance_threshold=rebalance_threshold,
+                registry=self.registry, tracer=self.tracer,
+                events=self.events, name=f"{self.name}/pool",
+                **engine_opts)
+        else:
+            self.pool = SlotPool(backend, buckets=buckets, m=m,
+                                 registry=self.registry,
+                                 tracer=self.tracer,
+                                 name=f"{self.name}/pool", **engine_opts)
         # detector-ensemble serving: when the backend carries a
         # detector axis, verdict columns come back as per-detector flag
         # bitmasks ("ecc" stream) and the scheduler accounts flags per
         # detector at retirement
         be = self.pool.engine.backend
-        self._cuda = self.pool.device.type == "cuda"
+        self._cuda = self.pool.engine.device.type == "cuda"
         self._ensemble = bool(getattr(be, "aux_rows", 0))
         self._det_names: Tuple[str, ...] = tuple(
             getattr(be, "detectors", ()) or ())
@@ -540,14 +579,21 @@ class BatchingScheduler:
         weights are the one retained configuration), `PoolFull` ends
         the round — leftover deficits carry to the next tick, so a
         class starved by backpressure catches up first.
+
+        Sharded pools narrow the backpressure: `PoolFull` from one
+        shard's ladder blocks only the class whose head is routed
+        there (FIFO within the class holds); other classes keep
+        admitting — their streams may route to shards with room.  On a
+        single pool a full ladder still ends the whole round.
         """
+        blocked: set = set()
         while True:
             for c in [c for c, q in self._queues.items() if not q]:
                 del self._queues[c]
                 self._deficit.pop(c, None)
                 if c not in self._ctor_classes:
                     self._weights.pop(c, None)
-            backlogged = list(self._queues)
+            backlogged = [c for c in self._queues if c not in blocked]
             if not backlogged:
                 return
             # top every backlogged class up *before* admitting, so a
@@ -560,17 +606,27 @@ class BatchingScheduler:
                 while q and self._deficit[cls] >= 1.0:
                     req = q[0]
                     try:
-                        slot = int(self.pool.acquire(
-                            1, m=req.m, detectors=req.detectors,
-                            vote=req.vote)[0])
+                        if self._sharded:
+                            shard, slot = self.pool.acquire(
+                                req.rid, m=req.m,
+                                detectors=req.detectors, vote=req.vote)
+                        else:
+                            shard, slot = 0, int(self.pool.acquire(
+                                1, m=req.m, detectors=req.detectors,
+                                vote=req.vote)[0])
                     except PoolFull:
-                        return  # whole pool full: round over
+                        if not self._sharded:
+                            return  # whole pool full: round over
+                        blocked.add(cls)  # this head's shard is full
+                        break
                     q.popleft()
                     self._deficit[cls] -= 1.0
                     st = self.stats_by_rid[req.rid]
                     st.admitted_tick = self.tick_no
                     st.slot = slot
-                    self.runs[req.rid] = _Run(req, slot, st)
+                    if self._sharded:
+                        st.shard = shard
+                    self.runs[req.rid] = _Run(req, slot, st, shard=shard)
                     events["admitted"].append(req.rid)
                     ch = self._cls(req.priority)
                     ch["queued"].dec()
@@ -585,12 +641,29 @@ class BatchingScheduler:
                         priority=req.priority)
 
     def _dispatch(self, members: List[_Run]) -> None:
-        """One fused ragged (t, C) engine call: slot c retires
-        min(pending_c, t) samples via the per-slot valid-length vector;
-        everyone else is suspended at vlen=0.  Decode-only ticks (every
-        member's pending <= decode_t) ride the short (decode_t, C) call
-        instead of the full chunk."""
-        cap = self.pool.capacity
+        """Dispatch one fused ragged call per shard holding ready
+        members (a single call on an unsharded pool).  The per-shard
+        split cannot change any slot's retirement: each slot still
+        takes n = min(pending, t_len), and the short-tick choice only
+        drops t_len when every member of that call fits under it."""
+        if not self._sharded:
+            self._dispatch_group(members, 0)
+            return
+        by_shard: Dict[int, List[_Run]] = {}
+        for run in members:
+            by_shard.setdefault(run.shard, []).append(run)
+        for shard in sorted(by_shard):
+            self._dispatch_group(by_shard[shard], shard)
+
+    def _dispatch_group(self, members: List[_Run], shard: int) -> None:
+        """One fused ragged (t, C) engine call on one shard: slot c
+        retires min(pending_c, t) samples via the per-slot valid-length
+        vector; everyone else is suspended at vlen=0.  Decode-only ticks
+        (every member's pending <= decode_t) ride the short (decode_t,
+        C) call instead of the full chunk.  The call's readiness event
+        is recorded on its pool's device, where its outputs are."""
+        pool = self.pool.pools[shard] if self._sharded else self.pool
+        cap = pool.capacity
         t_len = self.chunk_t
         if all(r.avail <= self.decode_t for r in members):
             t_len = self.decode_t
@@ -607,17 +680,19 @@ class BatchingScheduler:
         self._c_calls.inc()
         span = (self.tracer.span(
                     "dispatch", device=True, tick=self.tick_no,
-                    t=t_len, slots=len(mem),
+                    t=t_len, slots=len(mem), shard=shard,
                     samples=int(sum(n for _, _, n in mem)))
                 if self.tracer.enabled else None)
         if span is not None:
             span.__enter__()
         t0 = time.perf_counter()
-        out = self.pool.process(x, valid_lens=vlens)
+        out = pool.process(x, valid_lens=vlens)
         done = None
         if self._cuda:
+            # under a channel split the outputs are gathered on the
+            # pool's first device, whose stream waits for every group
             done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.pool.device))
+            done.record(torch.cuda.current_stream(pool.device))
         sync_wall = None
         if self.measure_latency:
             if done is not None:
@@ -626,7 +701,8 @@ class BatchingScheduler:
         if span is not None:
             span.__exit__(None, None, None)
         self._inflight.append(_InFlight(
-            out, mem, t_len, self.tick_no, t0, sync_wall, done))
+            out, mem, t_len, self.tick_no, t0, sync_wall, done,
+            shard=shard if self._sharded else None))
         self._g_inflight.set(len(self._inflight))
 
     def _retire(self, inf: _InFlight, events: Optional[dict]) -> None:
@@ -708,6 +784,8 @@ class BatchingScheduler:
                 data = {"slot": slot, "n": n, "flags": nf,
                         "dispatch_tick": inf.tick,
                         "outlier": col.copy()}
+                if inf.shard is not None:
+                    data["shard"] = inf.shard
                 if self.collect:
                     data["ecc"] = ecc[:n, slot].copy()
                 if det_counts is not None:
@@ -758,6 +836,10 @@ class BatchingScheduler:
             self._deferred_flagged.clear()
         # host bookkeeping first: admission + take + vlens assembly all
         # overlap with the previous tick's in-flight device compute
+        if (self._sharded and self.rebalance_every
+                and self.tick_no > 0
+                and self.tick_no % self.rebalance_every == 0):
+            self._rebalance()
         self._admit(events)
         ready = [r for r in self.runs.values() if r.avail > 0]
         deep = self.pipeline_depth > 1 and not self.measure_latency
@@ -766,10 +848,12 @@ class BatchingScheduler:
             # one (its chunks must be fetched in dispatch order).  When
             # every ready slot is fenced, force-retire oldest calls
             # until one frees up — a tick with work always dispatches.
+            # The fence key is (shard, slot): local slot indices collide
+            # across shards, the pair never does.
             def _free():
-                fenced = {slot for i in self._inflight
-                          for _, slot, _ in i.members}
-                return [r for r in ready if r.slot not in fenced]
+                fenced = {r.place for i in self._inflight
+                          for r, _, _ in i.members}
+                return [r for r in ready if r.place not in fenced]
             free = _free()
             while not free and self._inflight:
                 self._retire(self._inflight.popleft(), events)
@@ -783,10 +867,13 @@ class BatchingScheduler:
             # landed on host retire now, whatever their dispatch order
             # (fencing makes per-slot order immune to it); then the
             # oldest calls retire until the pipeline fits its depth
+            # (each shard dispatches its own call, so a K-shard pool
+            # keeps depth*K calls in flight)
             for inf in [i for i in self._inflight if _host_ready(i)]:
                 self._inflight.remove(inf)
                 self._retire(inf, events)
-            while len(self._inflight) > self.pipeline_depth:
+            depth_cap = self.pipeline_depth * self.n_shards
+            while len(self._inflight) > depth_cap:
                 self._retire(self._inflight.popleft(), events)
         else:
             # retire everything dispatched *before* this tick; this
@@ -808,7 +895,10 @@ class BatchingScheduler:
             run.phase = DONE
             st = run.stats
             st.done_tick = self.tick_no
-            self.pool.release([run.slot])
+            if self._sharded:
+                self.pool.release(rid)
+            else:
+                self.pool.release([run.slot])
             self._c_completed.inc()
             ch = self._cls(st.priority)
             ch["running"].dec()
@@ -826,6 +916,23 @@ class BatchingScheduler:
                 self._note_evicted(old)
                 self.events.publish("evicted", self.tick_no, old)
         return events
+
+    def _rebalance(self) -> None:
+        """Run the pool's occupancy rebalancer and mirror the moves
+        into scheduler bookkeeping.  Streams with in-flight calls are
+        pinned in place: migration's state fetch must not race a
+        dispatched chunk, and the fence key (shard, slot) must stay
+        stable while a call referencing it is outstanding."""
+        avoid = {rid for rid, r in self.runs.items() if r.inflight}
+        moves = self.pool.rebalance(avoid=avoid, tick=self.tick_no)
+        for rid, _src, dst, new_slot in moves:
+            run = self.runs[rid]
+            run.shard = dst
+            run.slot = new_slot
+            st = run.stats
+            st.shard = dst
+            st.slot = new_slot
+            st.migrations += 1
 
     def _note_evicted(self, rid: str) -> None:
         if len(self._evicted) == self._evicted.maxlen:
@@ -846,8 +953,16 @@ class BatchingScheduler:
         waiting for `feed`, and only `close()` lets them finish."""
         start = self.tick_no
         while self.queued_total or self.runs:
-            can_admit = bool(self.queued_total) and (
-                self.pool.occupancy < self.pool.max_capacity)
+            if self._sharded:
+                # pool-wide headroom is not enough here: each class's
+                # FIFO head is pinned to its ring shard, so progress
+                # needs *that* shard (not just any shard) to have room
+                can_admit = any(
+                    self.pool.shard_free(self.pool.route(q[0].rid)) > 0
+                    for q in self._queues.values() if q)
+            else:
+                can_admit = bool(self.queued_total) and (
+                    self.pool.occupancy < self.pool.max_capacity)
             has_work = (self._inflight
                         or any(r.avail > 0 for r in self.runs.values()))
             completing = any(r.req.closed and r.avail == 0
@@ -955,6 +1070,10 @@ class BatchingScheduler:
                "chunk_latency": lat, "classes": classes,
                "programs": self.pool.programs(),
                "pool": self.pool.stats()}
+        if self._sharded:
+            out["shards"] = self.n_shards
+            out["migrations"] = self.pool.migrations
+            out["imbalance"] = self.pool.imbalance
         if self._ensemble:
             out["detector_flags"] = {
                 d: int(c.value) for d, c in self._det_counters.items()}

@@ -12,10 +12,15 @@ continuously.  It runs on the CUDA device unless the caller passes
         --requests 16 --history 256 --live 32 --backend cuda-q
     PYTHONPATH=src python -m repro_torch.launch.serve --mode streams \\
         --backend cuda-q --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode streams \\
+        --backend cuda-q --shards 4 --rebalance-every 4
+
+`shards=K` (`--shards`) serves over a sharded pool: K shards with
+consistent-hash routing and, with `rebalance_every=N`
+(`--rebalance-every`), live migration every N ticks.
 
 Not ported from the reference: the LM monitor demo `serve` (`--mode
-lm`), which needs the LM substrate (ROADMAP.md section 1, item 6), and
-the sharded gateway `shards=K` (item 4).
+lm`), which needs the LM substrate (ROADMAP.md section 1, item 6).
 """
 from __future__ import annotations
 
@@ -70,7 +75,10 @@ def serve_streams(streams: Sequence[tuple],
     `measure_latency=True` overrides it back to the synchronous loop,
     so depth and honest per-call latencies are mutually exclusive
     knobs.  `device` (also via `engine_opts`) picks the engines'
-    device: CUDA when absent.
+    device: CUDA when absent.  `shards=K` with `rebalance_every=N` (and
+    `shard_devices`, via `engine_opts`) serves over a K-shard pool; the
+    result then carries `shards`, `migrations` and the final
+    `imbalance`, and each request its `shard` and `migrations`.
 
     Observability (`repro_torch.obs`): `registry`/`tracer` pass through
     to the scheduler (and down to pool + engines); `on_event` is a
@@ -175,6 +183,9 @@ def serve_streams(streams: Sequence[tuple],
         "flagged": sorted(rid for rid in recs
                           if sched.telemetry(rid).flags),
         "pool": agg["pool"],
+        # sharded gateway only (shards > 1 via engine_opts)
+        **{k: agg[k] for k in ("shards", "migrations", "imbalance")
+           if k in agg},
         "per_request": per_request,
         "metrics": sched.registry.snapshot(),
         "_scheduler": sched,  # for tests and chip_smoke.py
@@ -214,6 +225,12 @@ def main(argv=None):
     ap.add_argument("--pipeline-depth", type=int, default=1,
                     help="in-flight fused calls (>1 runs the async "
                          "loop: latency measurement switches off)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="shard the pool (consistent-hash routing + "
+                         "live migration)")
+    ap.add_argument("--rebalance-every", type=int, default=0,
+                    help="run the occupancy rebalancer every N ticks "
+                         "(0: never; sharded gateway only)")
     args = ap.parse_args(argv)
 
     if args.mode == "lm":
@@ -230,12 +247,13 @@ def main(argv=None):
         backend=args.backend, chunk_t=args.chunk_t, fmt=fmt,
         device=args.device, decode_t=args.decode_t,
         pipeline_depth=args.pipeline_depth,
+        shards=args.shards, rebalance_every=args.rebalance_every,
         # depth > 1 only pipelines in the async loop
         measure_latency=args.pipeline_depth <= 1,
         class_weights={"latency": 4.0, "bulk": 1.0},
         arrivals_per_tick=args.arrivals_per_tick)
     lat = res["chunk_latency"]
-    dev = res["_scheduler"].pool.device
+    dev = res["_scheduler"].pool.engine.device
     print(f"[serve] {res['requests']} requests, "
           f"{res['samples']} samples in {res['wall_s']:.2f}s "
           f"({res['requests_per_s']:.1f} req/s, "
@@ -249,6 +267,10 @@ def main(argv=None):
         print(f"[serve]   class {cls}: {c['completed']} done, "
               f"queue wait p95 "
               f"{c.get('queue_wait_ticks_p95', 0):.0f} ticks")
+    if args.shards > 1:
+        print(f"[serve] {res['shards']} shards, "
+              f"{res['migrations']} migrations, "
+              f"final imbalance {res['imbalance']}")
     print(f"[serve] flagged tenants: {res['flagged']}")
 
 

@@ -289,15 +289,20 @@ def test_adaptive_decode_short_program():
 
 def test_cpu_outputs_are_ready_at_dispatch():
     """On the CPU a dispatched call carries no CUDA event and counts as
-    landed; `shards > 1` names the roadmap item it waits for."""
-    sched = _mk_sched("cuda-q")
-    sched.submit(Request("a", np.ones((5,), np.float32)))
-    sched.step()
-    (inf,) = sched._inflight
-    assert inf.done is None and _host_ready(inf)
-    assert inf.out["ecc"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 4"):
-        _mk_sched("scan", shards=2)
+    landed, on a single pool and on each shard of a sharded one (whose
+    calls name their shard)."""
+    for shards in (1, 2):
+        sched = _mk_sched("cuda-q", shards=shards)
+        for rid in ("a", "b", "c"):
+            sched.submit(Request(rid, np.ones((5,), np.float32)))
+        sched.step()
+        assert sched._inflight
+        for inf in sched._inflight:
+            assert inf.done is None and _host_ready(inf)
+            assert inf.out["ecc"].device.type == "cpu"
+            assert inf.shard == (None if shards == 1
+                                 else inf.members[0][0].shard)
+    assert len(sched._inflight) == len({r.shard for r in sched.runs.values()})
     with pytest.raises(ValueError, match="shards"):
         _mk_sched("scan", shards=0)
 

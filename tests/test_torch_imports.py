@@ -2,9 +2,11 @@
 
 `repro_torch` and `chip_smoke.py` must import neither JAX nor the JAX
 package `repro`: a fresh interpreter imports the port, runs a CPU
-engine step per backend, fills a `SlotPool` and serves a few streams
-through `serve_streams`, after which neither is in `sys.modules`; and
-no source file of the port names them in an import.
+engine step per backend, fills a `SlotPool`, serves a few streams
+through `serve_streams`, migrates a stream in a two-shard `ShardedPool`,
+serves through a two-shard gateway, runs an engine split over two
+devices and a word-length evaluation, after which neither is in
+`sys.modules`; and no source file of the port names them in an import.
 """
 import os
 import re
@@ -38,6 +40,21 @@ assert pool.capacity == 4
 res = serve_streams(_demo_streams(3, 8, 2), backend="cuda-q", device="cpu",
                     fmt=QFormat(32, 20), buckets=(2, 4), chunk_t=4)
 assert res["requests"] == 3 and res["samples"] == 30
+from repro_torch.engine import ShardedPool
+fleet = ShardedPool("cuda-q", shards=2, buckets=(2, 4), device="cpu",
+                    fmt=QFormat(32, 20))
+shard, _ = fleet.acquire("a", shard=0)
+fleet.migrate("a", 1)
+assert fleet.lookup("a")[0] == 1 and fleet.migrations == 1
+res = serve_streams(_demo_streams(4, 8, 2), backend="cuda-q", device="cpu",
+                    fmt=QFormat(32, 20), buckets=(2, 4), chunk_t=4,
+                    shards=2, rebalance_every=2)
+assert res["shards"] == 2 and res["samples"] == 40
+split = StreamEngine(8, "cuda-q", devices=["cpu", "cpu"],
+                     fmt=QFormat(32, 20))
+assert split.process(np.ones((4, 8), np.float32))["ecc"].shape == (4, 8)
+from repro_torch.fixedpoint import evaluate_format
+evaluate_format(np.ones((6, 2), np.float32), QFormat(16, 8))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
