@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the TEDA engine on one GPU and check it.
+"""Drive the PyTorch/CUDA port of the TEDA system on one GPU and check it.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --ensemble-times [--src DIR]
@@ -77,7 +77,29 @@ CUDA toolkit.  The phases, each of which raises on failure:
                devices=[cuda:0, cuda:0]) (and [cuda:0, cuda:1] with a
                second card) over phase 5's chunks, bit-exact with the
                unsplit engine, two launches per call, the current device
-               unchanged.
+               unchanged;
+  8. train   — the TEDA-guarded training loop, which launches none of
+               the three TEDA kernels (the guard runs the plain
+               single-sample step; checked by the launch counts): (a)
+               llama3.2-1b `reduced()`, batch 4 x seq 64, 12 guarded
+               steps through `make_train_step` from one parameter tree
+               on the card and on the CPU: equal skip verdicts, count
+               and skipped, losses within rtol 2e-2; (b) llama3.2-1b at
+               its full width (16 x 2048, vocab 128256) through
+               `train()`, batch 8 x seq 128, 24 guarded steps with a
+               corrupt batch every 10: finite losses and grad norms,
+               the loss falling, the card's skip verdicts equal to the
+               guard replayed on the CPU over the same telemetry (each
+               corrupt step's zeta printed beside its threshold), ms
+               per step, tokens/s, peak memory and a profiled window of
+               4 steps (device busy share, top device ops), and the
+               masked update at full width (skip True leaves every
+               parameter, moment and the count bit for bit); (c) the
+               "small" scale (8 x 512, vocab 32768), batch 8 x seq 128:
+               12 steps straight against 6 steps, a save and a resume
+               to 12 under deterministic algorithms: restored tensors
+               bit-equal to the saved ones, the same token batches,
+               losses bit-equal; save and restore times.
 
 The last three lines are the kernels' JSON record (`launches` from
 phase 5, `launches_serve` from phase 6, `launches_fleet` from phase 7's
@@ -97,7 +119,10 @@ ragged and zero vlen, in both contracts.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1574,6 +1599,472 @@ def _fleet_over_cards(seed, smi, n_cards):
         f"samples/s (single {single['samples_per_s']:.6e}) on {smi}")
 
 
+# ------------------------------------------------------------ training
+# phase 8: (a) the card against the CPU at the reduced width, (b)
+# llama3.2-1b at its full published width at `train.py`'s default batch
+# and sequence, (c) crash and resume at `train.py`'s "small" scale
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_CMP = dict(batch=4, seq=64, steps=12, corrupt_every=5)
+# a guard sharp enough to flag the corrupt batch at step 4 (f32 compute)
+TRAIN_TRIP = dict(batch=4, seq=32, steps=6, corrupt_every=4)
+TRAIN_FULL = dict(batch=8, seq=128, steps=24, corrupt_every=10)
+TRAIN_RESUME = dict(batch=8, seq=128, steps=12, cut=6)
+TRAIN_RTOL = 2e-2  # bf16 compute on two devices
+PROFILED = 4  # steps in (b)'s profiled window, after one warmup step
+
+
+@contextlib.contextmanager
+def _patched(module, name, value):
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield value
+    finally:
+        setattr(module, name, old)
+
+
+def _digest_stream(draws):
+    """A TokenStream that logs (step, token digest) for every batch the
+    training loop draws."""
+    from repro_torch.data import TokenStream
+
+    class Recording(TokenStream):
+        def batch_at(self, step):
+            batch = super().batch_at(step)
+            digest = hashlib.sha1(batch["tokens"].tobytes()).hexdigest()
+            draws.append((step, digest))
+            return batch
+
+    return Recording
+
+
+def _state_words(model, opt):
+    """A copy of every parameter and moment as raw bytes on the host,
+    and the step count."""
+    from repro_torch.tree import tree_leaves
+
+    leaves = list(model.parameters()) + tree_leaves(opt.m) \
+        + tree_leaves(opt.v)
+    return [_bytes(t).clone() for t in leaves], int(opt.count)
+
+
+def _guarded_steps(tree, cfg, dev, gcfg, opt_cfg, run):
+    """`run["steps"]` guarded steps through `make_train_step` from the
+    parameter tree `tree`, on `dev`, over `run`'s batches: (history,
+    count, skipped, kept), where kept lists the skipped steps that left
+    the parameters, m, v and the count bit for bit as they were."""
+    from repro_torch.core import guard_init
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.specs import make_train_step
+    from repro_torch.models import lm_params_from_numpy
+    from repro_torch.optim import adamw
+
+    model = lm_params_from_numpy(tree, cfg, dev)
+    opt = adamw.init(dict(model.named_parameters()))
+    gs = guard_init(gcfg, dev)
+    step_fn = make_train_step(cfg, opt_cfg, guard_cfg=gcfg)
+    stream = TokenStream(cfg.vocab, run["batch"], run["seq"],
+                         corrupt_every=run["corrupt_every"])
+    hist, kept = [], []
+    for step in range(run["steps"]):
+        toks = torch.from_numpy(stream.batch_at(step)["tokens"]).to(dev)
+        before = _state_words(model, opt)
+        model, opt, gs, m = step_fn(model, opt, gs, {"tokens": toks})
+        hist.append({k: float(v) for k, v in m.items()})
+        after = _state_words(model, opt)
+        if hist[-1]["skipped"] and before[1] == after[1] and all(
+                torch.equal(a, b) for a, b in zip(before[0], after[0])):
+            kept.append(step)
+    return hist, int(opt.count), int(gs.skipped), kept
+
+
+def _card_vs_cpu(tag, tree, cfg, dev, gcfg, run):
+    """One guarded run on the card and on the CPU from the same tree:
+    the skip verdicts, (count, skipped) and the kept state must agree,
+    the losses within TRAIN_RTOL.  Returns (skipped steps, count,
+    skipped, kept, the largest relative loss difference)."""
+    from repro_torch.optim import adamw
+
+    n = run["steps"]
+    opt_cfg = adamw.AdamWConfig(warmup_steps=n // 4 + 1, total_steps=n)
+    gpu = _guarded_steps(tree, cfg, dev, gcfg, opt_cfg, run)
+    cpu = _guarded_steps(tree, cfg, torch.device("cpu"), gcfg, opt_cfg, run)
+    skips = [[i for i, h in enumerate(r[0]) if h["skipped"]]
+             for r in (gpu, cpu)]
+    check(skips[0] == skips[1], f"train {tag}: skipped steps differ, card "
+          f"{skips[0]} vs CPU {skips[1]}")
+    check(gpu[1:3] == cpu[1:3], f"train {tag}: (count, skipped) card "
+          f"{gpu[1:3]} vs CPU {cpu[1:3]}")
+    check(gpu[3] == skips[0] and cpu[3] == skips[1],
+          f"train {tag}: skipped steps {skips[0]}, but only {gpu[3]} on "
+          f"the card and {cpu[3]} on the CPU left the parameters, m, v "
+          f"and the count as they were")
+    rel = max(abs(g["loss"] - c["loss"]) / abs(c["loss"])
+              for g, c in zip(gpu[0], cpu[0]))
+    check(rel <= TRAIN_RTOL, f"train {tag}: loss differs by {rel:.3e} "
+          f"relative (> {TRAIN_RTOL})")
+    return skips[0], gpu[1], gpu[2], rel
+
+
+def _train_card_vs_cpu(seed, smi, dev):
+    """(a): the same tree and batches on the card and on the CPU, under
+    the issue's guard (which stays quiet on these batches) and under a
+    sharp one that flags the corrupt batch at step 4."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import GuardConfig
+    from repro_torch.models import init_lm_params, lm_params_to_numpy
+
+    for tag, over, gcfg, run in (
+            ("(a)", {}, GuardConfig(m=3.0, warmup_steps=4), TRAIN_CMP),
+            ("(a trip)", dict(compute_dtype="float32"),
+             GuardConfig(m=2.0, warmup_steps=2), TRAIN_TRIP)):
+        cfg = get_config(TRAIN_ARCH).reduced(**over)
+        tree = lm_params_to_numpy(init_lm_params(seed, cfg, device="cpu"))
+        skips, count, skipped, rel = _card_vs_cpu(tag, tree, cfg, dev, gcfg,
+                                                  run)
+        log(f"[train] {tag} {cfg.name} reduced ({cfg.compute_dtype}), "
+            f"{run['steps']} steps, batch {run['batch']} x seq "
+            f"{run['seq']}, corrupt every {run['corrupt_every']}, guard "
+            f"m {gcfg.m} warmup {gcfg.warmup_steps}: card = CPU on every "
+            f"skip verdict (skipped steps {skips}, each leaving the "
+            f"parameters, m, v and the count bit for bit), (count, "
+            f"skipped) ({count}, {skipped}), loss within {rel:.3e} "
+            f"relative; on {smi}")
+    check(skips == [TRAIN_TRIP["corrupt_every"]],
+          f"train (a trip): skipped steps {skips}, not the corrupt step "
+          f"[{TRAIN_TRIP['corrupt_every']}]")
+
+
+def _profiled_rows(traced):
+    """(device us, name, count) of the device's own events (kernels,
+    copies, fills), not the host ops that launched them nor the step
+    annotations, largest first."""
+    rows = []
+    for ev in traced:
+        if str(ev.device_type).endswith("CUDA") \
+                and ev.self_device_time_total > 0 \
+                and not ev.key.startswith("ProfilerStep"):
+            rows.append((ev.self_device_time_total, ev.key, ev.count))
+    rows.sort(reverse=True)
+    return rows
+
+
+def _train_full(smi, dev):
+    """(b): llama3.2-1b at its full width, 24 guarded steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import GuardConfig
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import param_count, vocab_padded
+
+    cfg = get_config(TRAIN_ARCH)
+    b, s, n = TRAIN_FULL["batch"], TRAIN_FULL["seq"], TRAIN_FULL["steps"]
+    every = TRAIN_FULL["corrupt_every"]
+    gcfg = GuardConfig(m=3.0, warmup_steps=8)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, hist, summary = train_mod.train(
+        cfg, n, b, s, None, device=dev, log_every=4, guard_cfg=gcfg,
+        corrupt_every=every)
+    t_train = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    _profile_window(model, cfg, b, s, dev, gcfg, smi)
+    _masked_update(model, cfg, b, s, dev, smi)
+    del model
+    torch.cuda.empty_cache()
+
+    corrupt = [i for i in range(1, n) if i % every == 0]
+    skipped = [i for i, h in enumerate(hist) if h["skipped"]]
+    replay = _guard_replay(hist, gcfg)
+    # each step as train()'s straggler detector timed it: from the
+    # batch's upload to the host readback of the step's metrics
+    step_ms = [t * 1e3 for t in summary["step_s"]]
+    steady = step_ms[2:]
+    med = float(np.median(steady))
+    log(f"[train] (b) {cfg.name} full width ({cfg.n_layers} x "
+        f"{cfg.d_model}, vocab {cfg.vocab}, {n_params} parameters), "
+        f"batch {b} x seq {s}, {n} guarded steps in {t_train:.2f} s "
+        f"(set-up included): {med:.3f} ms per step (median of "
+        f"{len(steady)} steps), {b * s / med * 1e3:.1f} tokens/s, peak "
+        f"memory {peak / 2**30:.3f} GiB ({peak} B); on {smi}")
+    for name, vals, fmt in (("ms per step", step_ms, "{:.1f}"),
+                            ("losses", [h["loss"] for h in hist], "{!r}"),
+                            ("grad norms", [h["grad_norm"] for h in hist],
+                             "{!r}")):
+        log(f"[train] (b) {name}: {' '.join(map(fmt.format, vals))}")
+    log(f"[train] (b) corrupt steps {corrupt}, skipped steps {skipped}, "
+        f"straggler trips {summary['straggler_trips']}")
+    for i in corrupt:
+        _, zeta, thr = replay[i]
+        log(f"[train] (b) guard at corrupt step {i}: zeta (loss, grad "
+            f"norm) = ({zeta[0]:.4f}, {zeta[1]:.4f}) against the "
+            f"threshold {thr[0]:.4f}")
+    check(len(hist) == n, f"train (b): {len(hist)} steps, not {n}")
+    bad = [i for i, h in enumerate(hist)
+           if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]))]
+    check(not bad, f"train (b): non-finite loss or grad norm at {bad}")
+    check(summary["skipped"] == len(skipped),
+          f"train (b): guard counted {summary['skipped']} skips, the "
+          f"history {len(skipped)}")
+    check([r[0] for r in replay] == [h["skipped"] == 1.0 for h in hist],
+          f"train (b): the card's skips {skipped} differ from the CPU "
+          f"guard's on the same telemetry "
+          f"{[i for i, r in enumerate(replay) if r[0]]}")
+    clean = [h["loss"] for i, h in enumerate(hist)
+             if i not in corrupt and i not in skipped]
+    check(np.mean(clean[-3:]) < np.mean(clean[:3]),
+          f"train (b): loss did not fall: first 3 clean {clean[:3]}, "
+          f"last 3 {clean[-3:]}")
+    # param_count leaves out the final norm and the vocabulary padding
+    expect = param_count(cfg) + cfg.d_model \
+        + (vocab_padded(cfg) - cfg.vocab) * cfg.d_model
+    check(n_params == expect, f"train (b): {n_params} parameters, not "
+          f"{expect}")
+
+
+def _masked_update(model, cfg, b, s, dev, smi):
+    """The guard's masked update at full width: one batch's gradient,
+    then `adamw.update` with skip True (every parameter, moment and the
+    count stay bit for bit as they were) and with skip False (they
+    move).  Host-clock times of the forward + backward and
+    of each update, each closed by a synchronize."""
+    from repro_torch.data import TokenStream
+    from repro_torch.models import lm_loss
+    from repro_torch.optim import adamw
+
+    params = dict(model.named_parameters())
+    toks = TokenStream(cfg.vocab, b, s).batch_at(0)["tokens"]
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    opt_cfg = adamw.AdamWConfig()
+    state = adamw.init(params)
+    t = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.zero_grad(set_to_none=True)
+    loss, _ = lm_loss(model, batch, cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    t["forward + backward"] = time.perf_counter() - t0
+    grads = {n: p.grad for n, p in params.items()}
+    before = [p.detach().clone() for p in params.values()]
+    for skip in (True, False):
+        t0 = time.perf_counter()
+        _, state, _ = adamw.update(grads, state, params, opt_cfg,
+                                   skip=torch.tensor(skip, device=dev))
+        torch.cuda.synchronize()
+        t[f"update skip={skip}"] = time.perf_counter() - t0
+        same = [torch.equal(a.view(torch.int32), p.view(torch.int32))
+                for a, p in zip(before, params.values())]
+        moved = sum(int(torch.count_nonzero(m)) > 0 for m in state.m.values())
+        if skip:
+            check(all(same) and moved == 0 and int(state.count) == 0,
+                  "train (b): a skipped update changed the parameters, "
+                  "the moments or the count")
+        else:
+            check(not all(same) and moved > 0 and int(state.count) == 1,
+                  "train (b): an update with skip False changed nothing")
+    model.zero_grad(set_to_none=True)
+    log(f"[train] (b) masked update at full width: skip True left "
+        f"all {len(before)} parameter leaves, m, v and count bit for bit, "
+        f"skip False moved them; host clock, synchronized: "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in t.items())
+        + f"; on {smi}")
+
+
+def _guard_replay(hist, gcfg):
+    """The guard once more, on the CPU, over the telemetry the card's
+    guard saw (each step's loss and grad norm, float32 as read back):
+    (skip, zeta per channel, threshold per channel) per step."""
+    from repro_torch.core import guard_init, guard_step
+
+    gs = guard_init(gcfg, device="cpu")
+    out = []
+    for h in hist:
+        gs, v = guard_step(gs, torch.tensor([h["loss"], h["grad_norm"]],
+                                            dtype=torch.float32), gcfg)
+        out.append((bool(v.skip), v.per_channel.zeta.tolist(),
+                    v.per_channel.threshold.tolist()))
+    return out
+
+
+def _profile_window(model, cfg, b, s, dev, gcfg, smi):
+    """(b)'s profiled window: `PROFILED` steps of the trained model
+    through the step function `train()` runs, each closed as there by
+    the host readback of its metrics, after one warmup step that the
+    profiler traces and drops.  Prints the device busy share of the
+    window and the top device ops.  Fresh optimizer and guard state
+    (train() keeps its own): the guard is warming up and every step
+    updates."""
+    from repro_torch.core import guard_init
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.specs import make_train_step
+    from repro_torch.optim import adamw
+
+    n = TRAIN_FULL["steps"]
+    step_fn = make_train_step(cfg, adamw.AdamWConfig(
+        warmup_steps=n // 4 + 1, total_steps=n), guard_cfg=gcfg)
+    opt = adamw.init(dict(model.named_parameters()))
+    gs = guard_init(gcfg, dev)
+    stream = TokenStream(cfg.vocab, b, s)
+    traced = []
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=PROFILED,
+                                    repeat=1)
+    with torch.profiler.profile(
+            activities=acts, schedule=sched,
+            on_trace_ready=lambda p: traced.append(p.key_averages())) \
+            as prof:
+        for step in range(1 + PROFILED):
+            if step == 1:
+                t0 = time.perf_counter()
+            toks = torch.from_numpy(stream.batch_at(step)["tokens"])
+            model, opt, gs, m = step_fn(model, opt, gs,
+                                        {"tokens": toks.to(dev)})
+            torch.stack([v.float() for v in m.values()]).cpu()
+            if step == PROFILED:  # before the trace is handed over
+                wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
+    del opt, gs
+    check(len(traced) == 1, f"train (b): the profiler recorded "
+          f"{len(traced)} windows, not 1")
+    rows = _profiled_rows(traced[0])
+    if not rows:
+        log("[train] (b) profile: the profiler saw no device time "
+            "(not measured)")
+        return
+    busy = sum(r[0] for r in rows)
+    log(f"[train] (b) profile: {PROFILED} steps in {wall_us / 1e3:.1f} ms "
+        f"(profiled, {wall_us / 1e3 / PROFILED:.1f} ms per step), device "
+        f"busy {busy / 1e3:.1f} ms = {100.0 * busy / wall_us:.1f}% of the "
+        f"window; on {smi}")
+    for dev_us, key, count in rows[:12]:
+        log(f"[train]   {dev_us / 1e3:9.2f} ms  x{count:<5d} {key[:90]}")
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _bytes(t):
+    return t.detach().reshape(-1).contiguous().view(torch.uint8).cpu()
+
+
+def _train_resume(smi, dev):
+    """(c): 12 steps straight against 6 steps, a save, and a resume to
+    12, at `train.py`'s "small" scale."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+
+    cfg = train_mod.scaled_config(TRAIN_ARCH, "small")
+    b, s, n, cut = (TRAIN_RESUME[k] for k in ("batch", "seq", "steps",
+                                              "cut"))
+    opt = adamw.AdamWConfig(warmup_steps=n // 4 + 1, total_steps=n)
+    saved, restored, times = {}, [], {}
+
+    class Spy(CheckpointManager):
+        def save(self, step, state, extra=None):
+            saved[step] = [t.detach().clone() for t in tree_leaves(state)]
+            t0 = time.perf_counter()
+            super().save(step, state, extra)
+            t1 = time.perf_counter()
+            self.wait()
+            times["save"] = (t1 - t0, time.perf_counter() - t0)
+
+        def restore(self, template, step=None, device=None):
+            t0 = time.perf_counter()
+            tree, meta = super().restore(template, step, device)
+            _sync(dev)
+            times["restore"] = time.perf_counter() - t0
+            # cloned: training goes on to update the restored moments
+            restored.append((meta["step"], [t.clone() for t in
+                                            tree_leaves(tree)]))
+            return tree, meta
+
+    ckpt = ROOT / "build" / "train_resume_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, steps, where, resume in (
+                ("straight", n, None, False), ("cut", cut, ckpt, False),
+                ("resumed", n, ckpt, True)):
+            draws = []
+            with _patched(train_mod, "TokenStream",
+                          _digest_stream(draws)), \
+                    _patched(train_mod, "CheckpointManager", Spy):
+                _, hist, _ = train_mod.train(
+                    cfg, steps, b, s, where and str(where), resume=resume,
+                    device=dev, opt_cfg=opt, log_every=100)
+            runs[name] = (hist, draws)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    check(len(restored) == 1 and restored[0][0] == cut,
+          f"train (c): restores {[r[0] for r in restored]}, not [{cut}]")
+    leaves = restored[0][1]
+    check(len(leaves) == len(saved[cut]), "train (c): leaf count differs")
+    for i, (a, r) in enumerate(zip(saved[cut], leaves)):
+        check(a.dtype == r.dtype and a.shape == r.shape
+              and r.device.type == dev.type
+              and torch.equal(_bytes(a), _bytes(r)),
+              f"train (c): restored leaf {i} differs from the saved one")
+    straight, cut_run, resumed = (runs[k] for k in ("straight", "cut",
+                                                    "resumed"))
+    check([d[0] for d in resumed[1]] == list(range(cut, n)),
+          f"train (c): the resumed run drew steps "
+          f"{[d[0] for d in resumed[1]]}")
+    check([d[1] for d in cut_run[1] + resumed[1]]
+          == [d[1] for d in straight[1]],
+          "train (c): the cut and resumed runs drew other batches than "
+          "the straight run")
+    a_loss = [h["loss"] for h in resumed[0]]
+    b_loss = [h["loss"] for h in straight[0][cut:]]
+    check(a_loss == b_loss, f"train (c): resumed losses {a_loss} are not "
+          f"bit-equal to the straight run's {b_loss}")
+    check(all(x == y for x, y in zip(cut_run[0], straight[0][:cut])),
+          "train (c): the first 6 steps differ from the straight run")
+    n_bytes = sum(t.numel() * t.element_size() for t in saved[cut])
+    log(f"[train] (c) {cfg.name} small ({cfg.n_layers} x {cfg.d_model}, "
+        f"vocab {cfg.vocab}), batch {b} x seq {s}: {cut} steps, save, "
+        f"resume to {n}: {len(leaves)} restored leaves bit-equal to the "
+        f"saved ones, the same {n} token batches, losses of steps "
+        f"{cut}-{n - 1} bit-equal to the straight run's (deterministic "
+        f"algorithms on); save {n_bytes / 2**20:.1f} MiB: snapshot "
+        f"{times['save'][0]:.3f} s, written {times['save'][1]:.3f} s; "
+        f"restore {times['restore']:.3f} s; on {smi}")
+
+
+def phase_train(seed, smi):
+    """Phase 8: the TEDA-guarded training loop.  The guard runs the
+    plain single-sample TEDA step, so no TEDA kernel may launch here."""
+    from repro_torch.kernels import ensemble_scan as ek
+    from repro_torch.kernels import teda_q_scan as qk
+    from repro_torch.kernels import teda_scan as fk
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    mods = (fk, qk, ek)
+    for mod in mods:
+        mod.launches = 0
+    _train_card_vs_cpu(seed, smi, dev)
+    _train_full(smi, dev)
+    _train_resume(smi, dev)
+    counts = [mod.launches for mod in mods]
+    check(counts == [0, 0, 0], f"train: TEDA kernels launched {counts} "
+          "times on the training path")
+    log(f"[train] no TEDA kernel launched on the training path; phase 8 "
+        f"took {time.perf_counter() - t0:.1f} s")
+
+
 def profile_window(backend, eng, feed, warmup=2):
     """Where an engine call's time goes: torch.profiler over the
     `process` calls of `feed` but the first `warmup`, which the profiler
@@ -1604,15 +2095,7 @@ def profile_window(backend, eng, feed, warmup=2):
                 t0 = time.perf_counter()
     check(len(traced) == 1, f"profile {backend}: the profiler recorded "
           f"{len(traced)} cycles, not 1")
-    rows = []
-    for ev in traced[0]:
-        # the device's own events (kernels, copies, fills), not the
-        # host ops that launched them nor the step annotations
-        if str(ev.device_type).endswith("CUDA") \
-                and ev.self_device_time_total > 0 \
-                and not ev.key.startswith("ProfilerStep"):
-            rows.append((ev.self_device_time_total, ev.key, ev.count))
-    rows.sort(reverse=True)
+    rows = _profiled_rows(traced[0])
     busy = sum(r[0] for r in rows)
     if not rows:
         log(f"[profile] {backend}: the profiler saw no device time "
@@ -1648,6 +2131,9 @@ def main(argv=None):
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
+    # phase 8's resume check runs under deterministic algorithms, which
+    # need cuBLAS's fixed workspace from the first cuBLAS call on
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1671,6 +2157,7 @@ def main(argv=None):
     served, singles = phase_serve(args.seed, smi)
     fleet = phase_fleet(args.seed, smi, singles)
     del singles
+    phase_train(args.seed, smi)
     for name, rec in records.items():
         rec["launches"] = launches[name]
         rec["launches_serve"] = served[name]

@@ -2,10 +2,14 @@
 kernels written by hand for Hopper (sm_90a).
 
 A port of the JAX package `repro`, module for module: `core/` (the
-paper-faithful TEDA forms), `fixedpoint/` (the bit-accurate Q-format
-datapath), `kernels/` (the CUDA kernels, their plain PyTorch versions
-and the contract layer), `obs/` (metrics and tracing) and `engine/`
-(the stateful multi-stream engine).  It imports neither JAX nor the JAX
-package.  Entry points run on the CUDA device unless the caller passes
+paper-faithful TEDA forms, the data clouds, the training guard),
+`fixedpoint/` (the bit-accurate Q-format datapath), `kernels/` (the
+CUDA kernels, their plain PyTorch versions and the contract layer),
+`detectors/` (the ensemble), `obs/` (metrics and tracing), `engine/`
+(the stateful multi-stream engine, its pools and shards), `launch/`
+(the serving gateway and the training loop), and the training
+substrate: `models/` (the dense decoder LM), `configs/`, `optim/`,
+`data/` and `checkpoint/`.  It imports neither JAX nor the JAX package.
+Entry points run on the CUDA device unless the caller passes
 `device="cpu"`.
 """

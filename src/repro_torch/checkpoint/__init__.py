@@ -1,0 +1,4 @@
+"""Checkpointing."""
+from repro_torch.checkpoint.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

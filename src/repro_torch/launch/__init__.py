@@ -1,6 +1,8 @@
-"""repro_torch.launch — the serving layers over the engine.
+"""repro_torch.launch — the serving layers over the engine, and training.
 
 `batching` is the continuous-batching scheduler (`BatchingScheduler`
 over a `SlotPool`); `serve` is the detection gateway `serve_streams`
-and its CLI (`python -m repro_torch.launch.serve --mode streams`).
+and its CLI (`python -m repro_torch.launch.serve --mode streams`);
+`train` is the TEDA-guarded training loop and its CLI (`python -m
+repro_torch.launch.train`), over the step that `specs` builds.
 """

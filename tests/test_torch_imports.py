@@ -5,8 +5,11 @@ package `repro`: a fresh interpreter imports the port, runs a CPU
 engine step per backend, fills a `SlotPool`, serves a few streams
 through `serve_streams`, migrates a stream in a two-shard `ShardedPool`,
 serves through a two-shard gateway, runs an engine split over two
-devices and a word-length evaluation, after which neither is in
-`sys.modules`; and no source file of the port names them in an import.
+devices and a word-length evaluation, trains a reduced LM for two steps,
+saves and restores a checkpoint and runs the data clouds, after which
+neither is in `sys.modules`; and no source file of the port (every
+sub-package, the LM and training ones included) names them in an
+import.
 """
 import os
 import re
@@ -55,6 +58,21 @@ split = StreamEngine(8, "cuda-q", devices=["cpu", "cpu"],
 assert split.process(np.ones((4, 8), np.float32))["ecc"].shape == (4, 8)
 from repro_torch.fixedpoint import evaluate_format
 evaluate_format(np.ones((6, 2), np.float32), QFormat(16, 8))
+import tempfile
+import torch
+from repro_torch.configs import get_config
+from repro_torch.launch.train import train
+_, hist, _ = train(get_config("llama3.2-1b").reduced(), 2, 2, 16, None,
+                   device="cpu")
+assert len(hist) == 2
+from repro_torch.checkpoint import CheckpointManager
+with tempfile.TemporaryDirectory() as d:
+    mgr = CheckpointManager(d, async_save=False)
+    mgr.save(1, {"w": torch.ones(3, dtype=torch.bfloat16)})
+    assert mgr.restore({"w": torch.zeros(3, dtype=torch.bfloat16)})[0][
+        "w"].sum() == 3
+from repro_torch.core import clouds_run
+assert int(clouds_run(torch.zeros(4, 2))[0].n_active) == 1
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -73,6 +91,11 @@ def test_port_runs_without_jax_or_reference():
 def test_no_source_imports_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    scanned = {p.relative_to(PORT).parts[0] for p in files
+               if PORT in p.parents}
+    for sub in ("models", "configs", "optim", "data", "checkpoint", "core",
+                "launch", "engine", "kernels"):
+        assert sub in scanned, sub
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
