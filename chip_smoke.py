@@ -99,11 +99,29 @@ CUDA toolkit.  The phases, each of which raises on failure:
                12 steps straight against 6 steps, a save and a resume
                to 12 under deterministic algorithms: restored tensors
                bit-equal to the saved ones, the same token batches,
-               losses bit-equal; save and restore times.
+               losses bit-equal; save and restore times;
+  9. lm      — LM serving with the TEDA monitor: (a) llama3.2-1b
+               `reduced()` (batch 4, prompt 16, gen 16) and gemma2-2b
+               `reduced()` (batch 2, prompt 48, gen 32: past its 64-slot
+               ring) in float32 compute through `serve_prompts` from one
+               tree and prompt set on the card ("cuda-q" and "cuda") and
+               on the CPU: equal tokens, telemetry within rtol 1e-4, the
+               card's "cuda-q" monitor bit for bit with the CPU monitor
+               replaying the card's rows, "cuda" flags equal outside the
+               band; (b) llama3.2-1b at its full width through `serve()`,
+               batch 8, prompt 128, gen 128, once with "cuda" and once
+               with "cuda-q": prefill and decode tokens/s, ms per decode
+               step, one launch of the backend's kernel per decode tick
+               (counted by the kernel modules), none of the others, peak
+               memory; `lm_prefill`'s own tokens/s; a profiled window of
+               8 decode steps run as `serve` runs them (device busy
+               share, top device ops); (c) decode against `lm_forward`
+               at full width in float32 compute, rtol 1e-3 / atol 1e-3,
+               argmax equal.
 
 The last three lines are the kernels' JSON record (`launches` from
 phase 5, `launches_serve` from phase 6, `launches_fleet` from phase 7's
-gateway runs), the card's name and
+gateway runs, `launches_lm` from phase 9 (b)), the card's name and
 power limit as nvidia-smi prints them, and {"ok": true, "device": ...}.
 It exits non-zero without a result when CUDA is unavailable or the
 package is not beside it.
@@ -2065,6 +2083,310 @@ def phase_train(seed, smi):
         f"took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------- LM serving
+# phase 9: (a) the card against the CPU at the reduced width, (b)
+# llama3.2-1b at its full published width through `serve()`, (c) decode
+# against forward at full width in float32 compute
+LM_ARCH = "llama3.2-1b"
+# (arch, batch, prompt_len, gen): gemma2's 80 positions pass its window
+LM_CMP = (("llama3.2-1b", 4, 16, 16), ("gemma2-2b", 2, 48, 32))
+LM_FULL = dict(batch=8, prompt_len=128, gen=128)
+LM_PROFILED = 8  # decode steps in (b)'s profiled window, after 2 dropped
+LM_CHECK = dict(batch=2, seq=32)  # (c)
+LM_TEL_RTOL, LM_TEL_ATOL = 1e-4, 1e-5
+
+
+def _kernel_mods():
+    from repro_torch.kernels import ensemble_scan as ek
+    from repro_torch.kernels import teda_q_scan as qk
+    from repro_torch.kernels import teda_scan as fk
+
+    return {"teda_scan": fk, "teda_q_scan": qk, "ensemble_scan": ek}
+
+
+def _lm_fmt(backend):
+    from repro_torch.fixedpoint import QFormat
+
+    return QFormat(32, 20) if backend == "cuda-q" else None
+
+
+def _lm_replay(res, backend):
+    """The CPU monitor over the telemetry rows a card run fed its own:
+    the scheduler, after the drain."""
+    from repro_torch.launch.serve import (close_monitor, monitor_tick,
+                                          open_monitor)
+
+    hist, rows = res["telemetry"]
+    sched = open_monitor(hist, backend=backend, m=3.5, chunk_t=16,
+                         fmt=_lm_fmt(backend), device="cpu")
+    for tel in rows:
+        monitor_tick(sched, tel)
+    close_monitor(sched, hist.shape[1], rows.shape[0])
+    return sched
+
+
+def _lm_monitor_same(tag, backend, card, replay, batch):
+    """The card's monitor against the CPU replay of its rows: "cuda-q"
+    ecc and flags bit for bit; "cuda" ecc within rtol 5e-4 / atol 1e-5,
+    flags equal outside the 1e-4 band.  Returns the flags counted."""
+    sc = card["_scheduler"]
+    n_flags = 0
+    for b in range(batch):
+        for c in range(2):
+            rid = f"req{b}/ch{c}"
+            ra, rb = sc.results(rid), replay.results(rid)
+            n_flags += int(ra["outlier"].sum())
+            if backend == "cuda-q":
+                check(np.array_equal(ra["ecc"].view(np.int32),
+                                     rb["ecc"].view(np.int32))
+                      and np.array_equal(ra["outlier"], rb["outlier"]),
+                      f"lm {tag}: {rid} card and CPU Q monitors differ")
+                continue
+            ecc = torch.from_numpy(rb["ecc"]).double()
+            _close(f"lm {tag} {rid} ecc", torch.from_numpy(ra["ecc"]), ecc)
+            k = torch.arange(1, ecc.shape[0] + 1, dtype=torch.float64)
+            _, bad = _band_mismatch(ecc, 3.5, k,
+                                    torch.from_numpy(ra["outlier"]),
+                                    torch.from_numpy(rb["outlier"]))
+            check(bad == 0, f"lm {tag}: {rid} {bad} flags differ outside "
+                  "the threshold band")
+    check(sc.tick_no == replay.tick_no, f"lm {tag}: {sc.tick_no} ticks on "
+          f"the card, {replay.tick_no} in the replay")
+    return n_flags
+
+
+def _lm_card_vs_cpu(seed, smi, dev):
+    """(a): one parameter tree and prompt set through `serve_prompts` on
+    the card ("cuda-q" and "cuda") and on the CPU ("cuda-q", plain),
+    float32 compute."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_prompts
+    from repro_torch.models import (init_lm_params, lm_params_from_numpy,
+                                    lm_params_to_numpy)
+
+    for arch, b, p, gen in LM_CMP:
+        cfg = get_config(arch).reduced(compute_dtype="float32")
+        tree = lm_params_to_numpy(init_lm_params(seed, cfg, device="cpu"))
+        prompts = torch.randint(0, cfg.vocab, (b, p), generator=torch.
+                                Generator().manual_seed(seed))
+        runs = {}
+        for where, backend in (("cpu", "cuda-q"), ("card", "cuda-q"),
+                               ("card", "cuda")):
+            d = torch.device("cpu") if where == "cpu" else dev
+            model = lm_params_from_numpy(tree, cfg, d)
+            runs[where, backend] = serve_prompts(
+                model, prompts, cfg, gen, backend=backend,
+                fmt=_lm_fmt(backend))
+        cpu, card = runs["cpu", "cuda-q"], runs["card", "cuda-q"]
+        tag = f"(a) {arch}"
+        for r in runs.values():
+            check(np.array_equal(r["tokens"], cpu["tokens"]),
+                  f"lm {tag}: card tokens differ from the CPU's")
+        tel_err = 0.0
+        for r in (card, runs["card", "cuda"]):
+            for a, c in zip(r["telemetry"], cpu["telemetry"]):
+                a, c = torch.from_numpy(a).double(), torch.from_numpy(c)
+                err = (a - c.double()).abs()
+                check(bool((err <= LM_TEL_ATOL + LM_TEL_RTOL
+                            * c.double().abs()).all()),
+                      f"lm {tag}: telemetry differs beyond rtol "
+                      f"{LM_TEL_RTOL} (max abs err {float(err.max())})")
+                tel_err = max(tel_err, float(err.max()))
+        flags = {}
+        for backend in ("cuda-q", "cuda"):
+            flags[backend] = _lm_monitor_same(
+                tag, backend, runs["card", backend],
+                _lm_replay(runs["card", backend], backend), b)
+        check(card["flagged_requests"] == cpu["flagged_requests"],
+              f"lm {tag}: flagged requests {card['flagged_requests']} on "
+              f"the card, {cpu['flagged_requests']} on the CPU")
+        log(f"[lm] {tag} reduced (f32), batch {b}, prompt {p}, gen {gen} "
+            f"(max_seq {p + gen}, window {cfg.window}): tokens equal on "
+            f"the card ('cuda-q', 'cuda') and the CPU, telemetry within "
+            f"{tel_err:.3e} abs; the card's 'cuda-q' monitor = the CPU's "
+            f"replaying its rows bit for bit ({flags['cuda-q']} flags), "
+            f"'cuda' flags equal outside the band ({flags['cuda']} "
+            f"flags); flagged requests {card['flagged_requests']}; on "
+            f"{smi}")
+
+
+def _lm_full(seed, smi, dev):
+    """(b): `serve()` at llama3.2-1b's full width, once per TEDA
+    backend, with the kernels' launch counts set to 0 before the pair
+    and read after it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+
+    cfg = get_config(LM_ARCH)
+    b, p, gen = (LM_FULL[k] for k in ("batch", "prompt_len", "gen"))
+    mods = _kernel_mods()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.launches = 0
+    runs, counts = {}, {}
+    for backend in ("cuda", "cuda-q"):
+        before = {n: mod.launches for n, mod in mods.items()}
+        t0 = time.perf_counter()
+        runs[backend] = serve(cfg, b, p, gen, seed=seed, backend=backend,
+                              fmt=_lm_fmt(backend), device=dev)
+        wall = time.perf_counter() - t0
+        counts[backend] = {n: mod.launches - before[n]
+                           for n, mod in mods.items()}
+        res = runs[backend]
+        sched = res["_scheduler"]
+        ticks, calls = sched.tick_no, int(sched._c_calls.value)
+        own = counts[backend][KERNEL_OF[backend]]
+        others = {n: c for n, c in counts[backend].items()
+                  if n != KERNEL_OF[backend]}
+        check(own == calls == gen and ticks == gen + 1,
+              f"lm (b) {backend}: {own} launches, {calls} fused calls in "
+              f"{ticks} ticks for {gen} decode ticks")
+        check(not any(others.values()), f"lm (b) {backend}: other "
+              f"kernels launched {others}")
+        check(res["tokens"].shape == (b, gen)
+              and ((res["tokens"] >= 0) & (res["tokens"] < cfg.vocab)).all(),
+              f"lm (b) {backend}: tokens out of range")
+        tel = np.concatenate([t.reshape(-1, b, 2)
+                              for t in res["telemetry"]])
+        check(np.isfinite(tel).all(), f"lm (b) {backend}: non-finite "
+              "telemetry")
+        ms_step = b * 1e3 / res["decode_tok_s"]
+        log(f"[lm] (b) {cfg.name} full width ({cfg.n_layers} x "
+            f"{cfg.d_model}, vocab {cfg.vocab}), batch {b}, prompt {p}, "
+            f"gen {gen}, backend {backend!r}: prefill (teacher-forced "
+            f"decode) {res['prefill_tok_s']:.1f} tok/s, decode "
+            f"{res['decode_tok_s']:.1f} tok/s = {ms_step:.3f} ms per "
+            f"decode step of {b} tokens ({ms_step / b:.3f} ms per token); "
+            f"monitor: {own} {KERNEL_OF[backend]} launches in {gen} "
+            f"decode ticks = {own / gen:.3f} per tick (+1 drain tick "
+            f"that only retires, {ticks} ticks), flagged requests "
+            f"{res['flagged_requests']}; serve() wall {wall:.2f} s "
+            f"(weights drawn on the CPU included); on {smi}")
+    peak = torch.cuda.max_memory_allocated()
+    check(np.array_equal(runs["cuda"]["tokens"], runs["cuda-q"]["tokens"]),
+          "lm (b): the two runs decoded different tokens")
+    log(f"[lm] (b) peak memory {peak / 2**30:.3f} GiB ({peak} B); "
+        f"sample continuation (req 0): "
+        f"{runs['cuda']['tokens'][0][:12].tolist()}; on {smi}")
+    return {n: sum(c[n] for c in counts.values()) for n in mods}
+
+
+def _lm_profile_and_prefill(seed, smi, dev):
+    """(b)'s device view: `lm_prefill`'s own tokens/s at (b)'s prompt
+    shape, then a profiled window of `LM_PROFILED` decode steps run as
+    `serve_prompts` runs them (step, one (B, 2) fetch, one "cuda"
+    monitor tick), after 2 steps the profiler traces and drops.  Then
+    (c): decode against forward at full width in float32 compute."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (close_monitor, make_decode_step,
+                                          monitor_tick, open_monitor)
+    from repro_torch.models import (init_cache, init_lm_params,
+                                    lm_decode_step, lm_forward, lm_prefill)
+
+    cfg = get_config(LM_ARCH)
+    b, p = LM_FULL["batch"], LM_FULL["prompt_len"]
+    model = init_lm_params(seed, cfg, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (b, p), generator=torch.
+                            Generator().manual_seed(seed)).to(dev)
+    lm_prefill(model, prompts, cfg)
+    reps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        logits = lm_prefill(model, prompts, cfg)
+    torch.cuda.synchronize()
+    t_pre = (time.perf_counter() - t0) / reps
+    check(logits.shape == (b, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), "lm (b): lm_prefill "
+          "logits not finite or of the wrong shape")
+    log(f"[lm] (b) lm_prefill (the full backbone over the prompt, bf16 "
+        f"compute, read-out on the last position) batch {b} x {p}: "
+        f"{t_pre * 1e3:.3f} ms per call (mean of {reps}, synchronized), "
+        f"{b * p / t_pre:.1f} tok/s; on {smi}")
+
+    step = make_decode_step(cfg, greedy=True)
+    caches = init_cache(cfg, b, p + LM_PROFILED + 2, dtype=torch.float32,
+                        device=dev)
+    sched = open_monitor(np.zeros((0, b, 2), np.float32), backend="cuda",
+                         m=3.5, chunk_t=16, device=dev)
+    traced = []
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sch = torch.profiler.schedule(wait=0, warmup=2, active=LM_PROFILED,
+                                  repeat=1)
+    tok = prompts[:, 0]
+    with torch.inference_mode(), torch.profiler.profile(
+            activities=acts, schedule=sch,
+            on_trace_ready=lambda pr: traced.append(pr.key_averages())) \
+            as prof:
+        for i in range(2 + LM_PROFILED):
+            if i == 2:
+                t0 = time.perf_counter()
+            tok, caches, ent, mx = step(model, tok, i, caches, None)
+            monitor_tick(sched, torch.stack([ent, mx], -1).cpu().numpy())
+            if i == 1 + LM_PROFILED:
+                wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
+    close_monitor(sched, b, 2 + LM_PROFILED)
+    check(len(traced) == 1, f"lm (b): the profiler recorded {len(traced)} "
+          "windows, not 1")
+    rows = _profiled_rows(traced[0])
+    if rows:
+        busy = sum(r[0] for r in rows)
+        log(f"[lm] (b) profile: {LM_PROFILED} decode steps (with their "
+            f"fetch and 'cuda' monitor tick) in {wall_us / 1e3:.1f} ms "
+            f"(profiled, {wall_us / 1e3 / LM_PROFILED:.2f} ms per step), "
+            f"device busy {busy / 1e3:.2f} ms = "
+            f"{100.0 * busy / wall_us:.1f}% of the window; on {smi}")
+        for dev_us, key, count in rows[:12]:
+            log(f"[lm]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    else:
+        log("[lm] (b) profile: the profiler saw no device time "
+            "(not measured)")
+    del caches, sched
+
+    # (c) float32 compute: the same weights read with another cfg
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cb, cs = LM_CHECK["batch"], LM_CHECK["seq"]
+    toks = prompts[:cb, :cs]
+    with torch.inference_mode():
+        full, _ = lm_forward(model, toks, cfg32)
+        caches = init_cache(cfg32, cb, cs, dtype=torch.float32, device=dev)
+        outs = []
+        for t in range(cs):
+            lg, caches = lm_decode_step(model, toks[:, t], t, caches, cfg32)
+            outs.append(lg)
+    dec = torch.stack(outs, dim=1)
+    err = (dec.double() - full.double()).abs()
+    ok = err <= 1e-3 + 1e-3 * full.double().abs()
+    same = bool(torch.equal(dec.argmax(-1), full.argmax(-1)))
+    log(f"[lm] (c) {cfg.name} full width, f32 compute, batch {cb} x "
+        f"{cs}: decode step by step against lm_forward, largest "
+        f"difference {float(err.max()):.3e} (rtol 1e-3 / atol 1e-3: "
+        f"{'held' if bool(ok.all()) else 'FAILED'}), argmax "
+        f"{'equal' if same else 'DIFFERENT'} at every position; on {smi}")
+    check(bool(ok.all()), "lm (c): decode and forward logits differ "
+          "beyond rtol 1e-3 / atol 1e-3")
+    check(same, "lm (c): decode and forward argmax differ")
+
+
+def phase_lm(seed, smi):
+    """Phase 9: LM serving with the TEDA monitor.  Returns the kernels'
+    launches over (b)'s two `serve()` runs."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    _lm_card_vs_cpu(seed, smi, dev)
+    launches = _lm_full(seed, smi, dev)
+    _lm_profile_and_prefill(seed, smi, dev)
+    torch.cuda.empty_cache()
+    log(f"[lm] phase 9 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def profile_window(backend, eng, feed, warmup=2):
     """Where an engine call's time goes: torch.profiler over the
     `process` calls of `feed` but the first `warmup`, which the profiler
@@ -2158,16 +2480,19 @@ def main(argv=None):
     fleet = phase_fleet(args.seed, smi, singles)
     del singles
     phase_train(args.seed, smi)
+    lm = phase_lm(args.seed, smi)
     for name, rec in records.items():
         rec["launches"] = launches[name]
         rec["launches_serve"] = served[name]
         rec["launches_fleet"] = fleet[name]
+        rec["launches_lm"] = lm[name]
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "repro" or m.startswith("repro.")
                   for m in sys.modules), "the JAX package was imported")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_serve", "launches_fleet", "max_abs_err", "ms",
+            "launches_serve", "launches_fleet", "launches_lm",
+            "max_abs_err", "ms",
             "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}

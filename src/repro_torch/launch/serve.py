@@ -1,40 +1,58 @@
-"""Serving gateway: continuous-batching TEDA detection.
+"""Serving gateway: continuous-batching TEDA detection + LM monitoring.
 
-`serve_streams` is the detection gateway, driven by the
-`launch/batching.py` scheduler (admission queue, chunked prefill,
-per-request telemetry, backpressure when every capacity bucket is
-full): tenant streams (history + live samples, per-tenant sensitivity
-`m`) arrive on a schedule, attach to engine slots, and are served
-continuously.  It runs on the CUDA device unless the caller passes
-`device="cpu"` (then the kernel backends run their plain versions).
+Two entry points, both driven by the `launch/batching.py` scheduler
+(admission queue, chunked prefill, per-request telemetry, backpressure
+when every capacity bucket is full).  Both run on the CUDA device
+unless the caller passes `device="cpu"` (then the kernel backends run
+their plain versions).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --mode streams \\
-        --requests 16 --history 256 --live 32 --backend cuda-q
-    PYTHONPATH=src python -m repro_torch.launch.serve --mode streams \\
-        --backend cuda-q --device cpu
-    PYTHONPATH=src python -m repro_torch.launch.serve --mode streams \\
-        --backend cuda-q --shards 4 --rebalance-every 4
+  * `serve_streams` — the generic detection gateway: tenant streams
+    (history + live samples, per-tenant sensitivity `m`) arrive on a
+    schedule, attach to engine slots, and are served continuously.
 
-`shards=K` (`--shards`) serves over a sharded pool: K shards with
-consistent-hash routing and, with `rebalance_every=N`
-(`--rebalance-every`), live migration every N ticks.
+        PYTHONPATH=src python -m repro_torch.launch.serve --mode streams \\
+            --requests 16 --history 256 --live 32 --backend cuda-q
+        PYTHONPATH=src python -m repro_torch.launch.serve --mode streams \\
+            --backend cuda-q --shards 4 --rebalance-every 4
 
-Not ported from the reference: the LM monitor demo `serve` (`--mode
-lm`), which needs the LM substrate (ROADMAP.md section 1, item 6).
+    `shards=K` (`--shards`) serves over a sharded pool: K shards with
+    consistent-hash routing and, with `rebalance_every=N`
+    (`--rebalance-every`), live migration every N ticks.
+
+  * `serve` — the LM demo: teacher-forces a prompt batch through the
+    decode path, then decodes while per-request telemetry (logit
+    entropy, max-logit) streams through the detection gateway:
+    prompt-phase telemetry replays as chunked prefill (the monitor
+    warms up on the tenant's own history), and decode-phase telemetry
+    rides the per-tick trickle, one fused TEDA call per tick.  Flagged
+    requests surface the way a production gateway would quarantine
+    degenerate generations.
+
+        PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
+            --scale tiny --batch 4 --prompt-len 32 --gen 32 --device cpu
+        PYTHONPATH=src python -m repro_torch.launch.serve \\
+            --arch llama3.2-1b --scale full --backend cuda
+
+The telemetry is computed on the device inside the decode step; the
+loop hands the host-side scheduler one small (B, 2) array per
+generated token, its one device round trip per token.
 """
 from __future__ import annotations
 
 import argparse
-import sys
 import time
 from collections import deque
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.launch.batching import BatchingScheduler, Request
 
-__all__ = ["serve_streams"]
+__all__ = ["serve_streams", "make_decode_step", "serve", "serve_prompts",
+           "open_monitor", "monitor_tick", "close_monitor"]
+
+N_CHANNELS = 2  # per-request telemetry: (entropy, max-logit)
 
 
 # --------------------------------------------------------------- gateway
@@ -192,6 +210,200 @@ def serve_streams(streams: Sequence[tuple],
     }
 
 
+# --------------------------------------------------------------- LM demo
+def make_decode_step(cfg, greedy: bool):
+    """The decode step with the telemetry computed on the device.
+
+    `step(params, tok, pos, caches, sampler)` returns (next token,
+    caches, entropy, max-logit), the last two (B,) rows for the monitor,
+    with no host round trip.  Greedy decoding takes the first maximal
+    logit (as `jnp.argmax` does).  Sampling draws Gumbel noise from
+    `sampler`, a `torch.Generator` on the model's device: the reference's
+    `jax.random.categorical(fold_in(key, pos))` stream cannot be
+    reproduced, so sampled tokens differ from the reference's.
+    """
+    from repro_torch.models import lm_decode_step
+
+    def step(params, tok, pos, caches,
+             sampler: Optional[torch.Generator]):
+        logits, caches = lm_decode_step(params, tok, pos, caches, cfg)
+        ent, mx = _telemetry(logits)
+        nxt = (torch.argmax(logits, dim=-1) if greedy
+               else _sample(logits, sampler))
+        return nxt, caches, ent, mx
+
+    return step
+
+
+def _sample(logits, gen: Optional[torch.Generator]):
+    """One draw per row from softmax(logits), by Gumbel-max:
+    argmax(logits + G) with G = -log(E), E ~ Exp(1) from `gen`, all on
+    the device (`torch.multinomial` would read its input back to check
+    it)."""
+    noise = torch.empty_like(logits).exponential_(generator=gen)
+    noise.clamp_(min=torch.finfo(noise.dtype).tiny)
+    return torch.argmax(logits - noise.log(), dim=-1)
+
+
+def _telemetry(logits):
+    """(B, V) float32 logits -> (log-softmax entropy (B,), max (B,))."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ent = -torch.sum(torch.exp(logp) * logp, dim=-1)
+    return ent, torch.amax(logits, dim=-1)
+
+
+def _monitor_buckets(n_slots: int) -> Tuple[int, ...]:
+    """Bucket ladder reaching at least n_slots (powers of two from 8)."""
+    ladder = [8]
+    while ladder[-1] < n_slots:
+        ladder.append(ladder[-1] * 2)
+    return tuple(ladder)
+
+
+def _rid(b: int, c: int) -> str:
+    return f"req{b}/ch{c}"
+
+
+def open_monitor(hist: np.ndarray, *, backend: str = "scan",
+                 m: float = 3.5, chunk_t: int = 16, fmt=None,
+                 device=None) -> BatchingScheduler:
+    """The LM monitor: one detection request per request x channel,
+    admitted with its prompt telemetry `hist` (P, B, 2) as history, the
+    queue sized to the request set."""
+    batch = hist.shape[1]
+    sched = BatchingScheduler(
+        backend, buckets=_monitor_buckets(batch * N_CHANNELS),
+        chunk_t=chunk_t, m=m, fmt=fmt, queue_limit=batch * N_CHANNELS,
+        collect=True, device=device)
+    for b in range(batch):
+        for c in range(N_CHANNELS):
+            if not sched.submit(Request(_rid(b, c), hist[:, b, c], m=m)):
+                raise RuntimeError("the monitor queue is sized to the "
+                                   "request set, yet refused a request")
+    return sched
+
+
+def monitor_tick(sched: BatchingScheduler, tel: np.ndarray) -> None:
+    """Feed each request x channel its sample of one token's telemetry
+    `tel` (B, 2), then run one scheduler tick."""
+    for b in range(tel.shape[0]):
+        for c in range(N_CHANNELS):
+            sched.feed(_rid(b, c), tel[b, c:c + 1])
+    sched.step()
+
+
+def close_monitor(sched: BatchingScheduler, batch: int,
+                  gen: int) -> list:
+    """Close every member, drain, and return the requests flagged on
+    their decode-phase verdicts (any channel): the prompt is the
+    tenant's own baseline, not the generation under scrutiny."""
+    for b in range(batch):
+        for c in range(N_CHANNELS):
+            sched.close(_rid(b, c))
+    sched.drain()
+    return [b for b in range(batch)
+            if any(sched.results(_rid(b, c))["outlier"][-gen:].any()
+                   for c in range(N_CHANNELS))]
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve_prompts(params, prompts, cfg, gen: int, *, m: float = 3.5,
+                  seed: int = 0, greedy: bool = True,
+                  backend: str = "scan", chunk_t: int = 16,
+                  fmt=None) -> dict:
+    """`serve`'s work on a given model and prompt batch (B, P), on the
+    model's device.  The decode loop runs under inference mode and
+    writes the cache in place; the only device round trip per token is
+    the (B, 2) telemetry fetch that feeds the monitor."""
+    from repro_torch.models import init_cache, lm_decode_step
+
+    dev = next(params.parameters()).device
+    if not isinstance(prompts, torch.Tensor):  # numpy: a writable copy
+        prompts = torch.from_numpy(np.array(prompts))
+    prompts = prompts.to(dev)
+    batch, prompt_len = prompts.shape
+    caches = init_cache(cfg, batch, prompt_len + gen, dtype=torch.float32,
+                        device=dev)
+    step = make_decode_step(cfg, greedy)
+    sampler = None if greedy else torch.Generator(device=dev).manual_seed(seed)
+
+    with torch.inference_mode():
+        # prefill by teacher-forcing the prompt through the decode path,
+        # banking per-token telemetry: it becomes the monitor's chunked-
+        # prefill history
+        _sync(dev)
+        t0 = time.perf_counter()
+        prompt_tel = []
+        for i in range(prompt_len - 1):
+            logits, caches = lm_decode_step(params, prompts[:, i], i,
+                                            caches, cfg)
+            prompt_tel.append(torch.stack(_telemetry(logits), dim=-1))
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        # (prompt_len - 1, B, 2) on the host, one request x channel
+        # stream each (empty for prompt_len == 1: the monitor starts
+        # cold)
+        hist = (torch.stack(prompt_tel).cpu().numpy() if prompt_tel
+                else np.zeros((0, batch, N_CHANNELS), np.float32))
+
+        sched = open_monitor(hist, backend=backend, m=m, chunk_t=chunk_t,
+                             fmt=fmt, device=dev)
+        outs, rows = [], []
+        tok = prompts[:, -1]
+        _sync(dev)
+        t0 = time.perf_counter()
+        for i in range(gen):
+            tok, caches, ent, mx = step(params, tok, prompt_len - 1 + i,
+                                        caches, sampler)
+            outs.append(tok)
+            tel = torch.stack([ent, mx], dim=-1).cpu().numpy()  # (B, 2)
+            rows.append(tel)
+            monitor_tick(sched, tel)
+        flagged = close_monitor(sched, batch, gen)
+        toks_out = (torch.stack(outs, dim=1).cpu().numpy() if outs
+                    else np.zeros((batch, 0), np.int64))
+        decode_s = time.perf_counter() - t0
+
+    return {
+        "tokens": toks_out,
+        "flagged_requests": flagged,
+        "prefill_tok_s": batch * (prompt_len - 1) / prefill_s,
+        "decode_tok_s": batch * gen / decode_s,
+        "monitor": sched.stats(),
+        # for tests and chip_smoke.py: the monitor's input rows
+        # (prompt history, decode rows) and the scheduler
+        "telemetry": (hist, np.asarray(rows, np.float32).reshape(
+            gen, batch, N_CHANNELS)),
+        "_scheduler": sched,
+    }
+
+
+def serve(cfg, batch: int, prompt_len: int, gen: int, m: float = 3.5,
+          seed: int = 0, greedy: bool = True, backend: str = "scan",
+          chunk_t: int = 16, fmt=None, device=None) -> dict:
+    """The LM demo on `device` (the card unless the caller names
+    another): random weights and prompts drawn from `seed` on CPU
+    generators (the same tokens on any device), then `serve_prompts`.
+    Returns tokens (B, gen), flagged_requests, prefill_tok_s,
+    decode_tok_s and the monitor's stats."""
+    from repro_torch.engine.engine import resolve_device
+    from repro_torch.models import init_lm_params
+
+    if cfg.family == "encdec":
+        raise ValueError("serve targets decoder-only LMs")
+    dev = resolve_device(device)
+    params = init_lm_params(seed, cfg, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
+                            generator=torch.Generator().manual_seed(seed))
+    return serve_prompts(params, prompts, cfg, gen, m=m, seed=seed,
+                         greedy=greedy, backend=backend, chunk_t=chunk_t,
+                         fmt=fmt)
+
+
 # ------------------------------------------------------------------- CLI
 def _demo_streams(n: int, history: int, live: int, seed: int = 0):
     """Synthetic tenant mix: drifting means, one loud anomaly burst,
@@ -210,11 +422,16 @@ def _demo_streams(n: int, history: int, live: int, seed: int = 0):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", default="streams", choices=["lm", "streams"])
+    ap.add_argument("--mode", default="lm", choices=["lm", "streams"])
+    ap.add_argument("--arch", default="qwen2-7b")
+    ap.add_argument("--scale", default="tiny", choices=["tiny", "full"])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--backend", default="scan")
     ap.add_argument("--device", default=None,
-                    help="torch device of the engines (default: cuda; "
-                         "'cpu' runs the kernels' plain versions)")
+                    help="torch device of the model and engines (default: "
+                         "cuda; 'cpu' runs the kernels' plain versions)")
     ap.add_argument("--chunk-t", type=int, default=16)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--history", type=int, default=256)
@@ -233,14 +450,28 @@ def main(argv=None):
                          "(0: never; sharded gateway only)")
     args = ap.parse_args(argv)
 
-    if args.mode == "lm":
-        sys.exit("serve: --mode lm (the LM monitor demo) is not ported "
-                 "yet; it waits for the LM substrate, ROADMAP.md "
-                 "section 1, item 6")
     fmt = None
     if args.backend == "cuda-q":
         from repro_torch.fixedpoint import QFormat
         fmt = QFormat(32, 20)  # the README's Q11.20 reference format
+
+    if args.mode == "lm":
+        from repro_torch.configs import get_config
+        cfg = get_config(args.arch)
+        if args.scale == "tiny":
+            cfg = cfg.reduced()
+        res = serve(cfg, args.batch, args.prompt_len, args.gen,
+                    backend=args.backend, chunk_t=args.chunk_t, fmt=fmt,
+                    device=args.device)
+        dev = res["_scheduler"].pool.engine.device
+        print(f"[serve] prefill {res['prefill_tok_s']:.1f} tok/s, "
+              f"decode {res['decode_tok_s']:.1f} tok/s on {dev}")
+        print(f"[serve] TEDA-flagged requests: {res['flagged_requests']}")
+        print(f"[serve] monitor: {res['monitor']['ticks']} ticks, "
+              f"pool {res['monitor']['pool']}")
+        print(f"[serve] sample continuation (req 0): "
+              f"{res['tokens'][0][:16].tolist()}")
+        return
 
     res = serve_streams(
         _demo_streams(args.requests, args.history, args.live),

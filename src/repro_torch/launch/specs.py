@@ -1,7 +1,8 @@
 """The training step builder and the guard's default configuration.
 
 The reference's module also builds `ShapeDtypeStruct` cells for XLA's
-dry run; those are XLA tooling and wait for ROADMAP.md §1 item 7.
+dry run; those are XLA tooling and wait for ROADMAP.md queue 1:
+multi-device and XLA tooling.
 """
 from __future__ import annotations
 
@@ -31,8 +32,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     """
     if cfg.family == "encdec":
         raise NotImplementedError(
-            "the encoder-decoder loss is not ported yet (ROADMAP.md §1 "
-            "item 6)")
+            "the encoder-decoder loss is not ported yet (ROADMAP.md "
+            "queue 1: the other model families)")
 
     def train_step(model, opt_state, guard_state, batch):
         params = dict(model.named_parameters())

@@ -144,7 +144,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.production_mesh:
         sys.exit("--production-mesh: the multi-device mesh is not ported "
-                 "yet (ROADMAP.md §1 item 7)")
+                 "yet (ROADMAP.md queue 1: multi-device and XLA "
+                 "tooling)")
     cfg = scaled_config(args.arch, args.scale)
     train(cfg, args.steps, args.batch, args.seq, args.ckpt,
           resume=args.resume, device=args.device,

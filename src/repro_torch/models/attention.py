@@ -1,4 +1,5 @@
-"""GQA attention: the flash-style chunked training path.
+"""GQA attention: the flash-style chunked training path and the cached
+one-token decode path.
 
 Covers the dense variants: grouped KV heads, RoPE, QKV bias (qwen2),
 attention-logit softcap (gemma2), sliding window (starcoder2) and
@@ -11,12 +12,16 @@ query chunk (or wholly behind its window) are skipped.  Scores, the
 running max and sum and the accumulator are float32; P is cast to V's
 dtype before P @ V, as the reference does.  Each query chunk of a
 multi-chunk call is checkpointed, so its probabilities are recomputed
-in the backward instead of being kept for every chunk.  The KV cache
-and the one-token decode path come with the serving slice.
+in the backward instead of being kept for every chunk.
+
+The decode path (`decode_attention`) reads a `KVCache` of S past
+positions and writes the new token's K and V into it in place (the
+reference returns an updated copy of a donated buffer; the values are
+the same).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -26,7 +31,8 @@ from repro_torch.models.layers import (Params, dense, dense_init, rope,
 
 NEG = -1e30
 
-__all__ = ["NEG", "attention_init", "flash_attention", "attend_train"]
+__all__ = ["NEG", "KVCache", "attention_init", "flash_attention",
+           "attend_train", "decode_attention"]
 
 
 def attention_init(gen, cfg, d_model: Optional[int] = None,
@@ -43,6 +49,11 @@ def attention_init(gen, cfg, d_model: Optional[int] = None,
     p.wo = dense_init(gen, h * hd, d, False, cfg.pdtype,
                       scale=(h * hd) ** -0.5, device=device)
     return p
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, S, KV, D)
+    v: torch.Tensor  # (B, S, KV, D)
 
 
 def _mask(q_pos, k_pos, causal: bool, window: Optional[int]):
@@ -164,3 +175,61 @@ def attend_train(params, x, cfg, *, causal=True, window=None,
         scale=cfg.attn_scale, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     out = out.reshape(b, s, h * hd)
     return dense(params["wo"], out, cd), (k, v)
+
+
+def decode_attention(params, x, cache: KVCache, pos, cfg, *,
+                     window=None, cross: bool = False, ring: bool = False):
+    """One-token decode.  x: (B, 1, d); cache holds S past positions.
+
+    Returns (out (B, 1, d), cache).  `pos` is this token's position, a
+    Python int or a 0-d integer tensor.  Self-attention writes the new
+    K and V into slot `pos` of the cache, in place.  Cross attention
+    reads the cache without update or RoPE.  `ring=True` treats the
+    cache as a rolling window buffer (S == window): the new K and V
+    overwrite slot pos % S and every slot is attendable, zeros included
+    until the buffer is warm, as in the reference.
+    """
+    b = x.shape[0]
+    hd, h, kvh, g = cfg.head_dim, cfg.n_heads, cfg.n_kv, cfg.q_per_kv
+    cd = cfg.cdtype
+    s = cache.k.shape[1]
+    pos = _as_pos(pos, x.device)
+
+    q = dense(params["wq"], x, cd).reshape(b, 1, kvh * g, hd)
+    if not cross:
+        where = pos.reshape(1, 1)
+        q = rope(q, where, cfg.rope_theta)
+        k_new = dense(params["wk"], x, cd).reshape(b, 1, kvh, hd)
+        k_new = rope(k_new, where, cfg.rope_theta)
+        v_new = dense(params["wv"], x, cd).reshape(b, 1, kvh, hd)
+        slot = (pos % s if ring else pos).reshape(1)
+        cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
+        cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
+
+    q = q.reshape(b, kvh, g, hd)
+    scale = hd ** -0.5 if cfg.attn_scale is None else cfg.attn_scale
+    # compute-dtype operands, float32 products and sums (bf16 upcasts
+    # exactly)
+    s_log = torch.einsum("bkgd,bskd->bkgs", q.float(),
+                         cache.k.to(cd).float()) * scale
+    s_log = softcap(s_log, cfg.attn_softcap)
+    if not (cross or ring):  # ring: every slot is attendable
+        k_pos = torch.arange(s, device=x.device)
+        ok = k_pos <= pos
+        if window is not None:
+            ok &= pos - k_pos < window
+        s_log = torch.where(ok, s_log, NEG)
+    p = torch.softmax(s_log, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(cd).float(),
+                       cache.v.to(cd).float())
+    out = out.reshape(b, 1, h * hd).to(cd)
+    return dense(params["wo"], out, cd), cache
+
+
+def _as_pos(pos, device) -> torch.Tensor:
+    """`pos` as a 0-d int64 tensor on `device`.  A Python int becomes a
+    device fill, not a host-to-device copy (which would wait for the
+    device)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int64).reshape(())
+    return torch.full((), int(pos), dtype=torch.int64, device=device)

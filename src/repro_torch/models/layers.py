@@ -144,8 +144,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     half = d // 2
     expo = -torch.arange(0, half, dtype=torch.float32,
                          device=x.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=x.device), expo)
+    # a Python base: a device tensor made from it would be a blocking
+    # host-to-device copy on every call
+    freq = torch.pow(float(theta), expo)
     ang = positions[..., None].float() * freq  # (..., S, half)
     cos, sin = torch.cos(ang), torch.sin(ang)
     if x.ndim == cos.ndim + 1:  # broadcast over a heads axis

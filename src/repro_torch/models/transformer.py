@@ -5,14 +5,20 @@ axis and runs the stack with `lax.scan`.  The port keeps one module per
 layer: `LM.blocks` is a `ModuleList` in layer order (layer g * len(group)
 + j is block j of group g), and `lm_backbone` loops over the groups.
 The functions `init_lm_params`, `lm_backbone`, `lm_logits`,
-`lm_forward`, `chunked_ce` and `lm_loss` keep the reference's names and
-arguments, with the `LM` module in place of the parameter tree.
+`lm_forward`, `chunked_ce`, `lm_loss`, `init_cache`, `lm_decode_step`
+and `lm_prefill` keep the reference's names and arguments, with the
+`LM` module in place of the parameter tree.  The decode cache follows
+the module: `init_cache` returns one `KVCache` per layer, in layer
+order, where the reference stacks each group's caches on a leading
+(n_groups,) axis under "cache_<j>" (layer g * len(group) + j is
+`cache_<j>[g]`; `models/convert.py` carries caches across).
 
 Block kinds: "attn" (GQA attention + MLP, every dense variant: QKV bias,
 softcap, local/global alternation, sandwich norms, the embedding scale,
 layernorm, GELU and the non-gated MLP, sliding window).  The kinds
 "moe", "ssm", "mlstm", "slstm", "shared" and the "encdec" family raise
-`NotImplementedError` (ROADMAP.md §1 item 6).
+`NotImplementedError`; they wait for the other model families (ROADMAP.md
+queue 1).
 
 `cfg.remat` checkpoints each group (one layer, or gemma2's local/global
 pair) with `torch.utils.checkpoint`, the reference's `jax.checkpoint`
@@ -30,7 +36,8 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import attend_train, attention_init
+from repro_torch.models.attention import (KVCache, _as_pos, attend_train,
+                                          attention_init, decode_attention)
 from repro_torch.models.common import ModelConfig, vocab_padded
 from repro_torch.models.layers import (Params, dense, dense_init, embed,
                                        embedding_init, layernorm,
@@ -40,10 +47,10 @@ from repro_torch.models.mlp import mlp, mlp_init
 
 __all__ = ["BlockDef", "block_layout", "LM", "init_lm_params",
            "lm_backbone", "lm_logits", "lm_forward", "chunked_ce",
-           "lm_loss"]
+           "lm_loss", "init_cache", "lm_decode_step", "lm_prefill"]
 
 _LATER = ("is not ported yet: the port has the dense decoder only "
-          "(ROADMAP.md §1 item 6)")
+          "(ROADMAP.md queue 1: the other model families)")
 
 
 # ------------------------------------------------------------- layouts --
@@ -154,6 +161,16 @@ def _apply_block(bp, bd: BlockDef, x, cfg):
     return x + h
 
 
+def _embed(params: LM, tokens, cfg: ModelConfig):
+    """Token embeddings in the compute dtype; gemma scales them by
+    sqrt(d) rounded to the compute dtype (a Python float of that value,
+    so no host-to-device copy)."""
+    x = embed(params["embed"], tokens, cfg.cdtype)
+    if cfg.local_global_period:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype).item()
+    return x
+
+
 def _group_body(x, blocks, cfg):
     x = x.to(cfg.cdtype)  # keep the remat-saved carry in bf16
     for bp in blocks:
@@ -165,15 +182,12 @@ def lm_backbone(params: LM, tokens, cfg: ModelConfig):
     """tokens (B, S) int -> (final-norm hidden (B, S, d), aux)."""
     grp, n_groups = block_layout(cfg)
     _, norm = _norm_fns(cfg)
-    x = embed(params["embed"], tokens, cfg.cdtype)
-    if cfg.local_global_period:  # gemma scales embeddings (a cd scalar)
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype,
-                             device=x.device)
+    x = _embed(params, tokens, cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     if remat and cfg.remat_policy == "dots":
         raise NotImplementedError(
             "remat_policy='dots' has no counterpart in the port "
-            "(ROADMAP.md §1 item 6)")
+            "(ROADMAP.md queue 1: multi-device and XLA tooling)")
     remat = remat and cfg.remat_policy == "nothing"
     blocks = params["blocks"]
     per = len(grp)
@@ -245,3 +259,73 @@ def lm_loss(params: LM, batch, cfg: ModelConfig):
     loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux,
                   "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0))}
+
+
+# -------------------------------------------------------------- serving
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device=None) -> List[KVCache]:
+    """One zeroed `KVCache` per layer, (batch, S, KV, D) each, on
+    `device` (the card unless the caller names another).  A windowed
+    block keeps S = min(max_seq, window)."""
+    from repro_torch.engine.engine import resolve_device
+    if cfg.family == "encdec":
+        raise NotImplementedError(f"family 'encdec' {_LATER}")
+    dev = resolve_device(device)
+    grp, n_groups = block_layout(cfg)
+    caches = []
+    for _ in range(n_groups):
+        for bd in grp:
+            if bd.kind != "attn":
+                raise NotImplementedError(
+                    f"block kind {bd.kind!r} {_LATER}")
+            s = min(max_seq, bd.window) if bd.window else max_seq
+            shape = (batch, s, cfg.n_kv, cfg.head_dim)
+            caches.append(KVCache(
+                k=torch.zeros(shape, dtype=dtype, device=dev),
+                v=torch.zeros(shape, dtype=dtype, device=dev)))
+    return caches
+
+
+def _decode_block(bp, bd: BlockDef, x, cache: KVCache, pos, cfg):
+    """Decode-path block application. x (B, 1, d)."""
+    _, norm = _norm_fns(cfg)
+    post = cfg.local_global_period > 0
+    ring = bd.window is not None and cache.k.shape[1] == bd.window
+    h = norm(bp["ln1"], x, cfg.norm_eps)
+    h, cache = decode_attention(bp["attn"], h, cache, pos, cfg,
+                                window=bd.window, ring=ring)
+    if post:
+        h = norm(bp["post_ln1"], h, cfg.norm_eps)
+    x = x + h
+    h = norm(bp["ln2"], x, cfg.norm_eps)
+    h = mlp(bp["mlp"], h, cfg.cdtype, getattr(cfg, "mlp_act", "silu"))
+    if post:
+        h = norm(bp["post_ln2"], h, cfg.norm_eps)
+    return x + h, cache
+
+
+def lm_decode_step(params: LM, token, pos, caches: List[KVCache],
+                   cfg: ModelConfig):
+    """One decode step.  token (B,) int, pos a Python int or a 0-d
+    integer tensor.  Writes each layer's new K and V into `caches` in
+    place; returns (logits (B, vocab) float32, caches)."""
+    _, norm = _norm_fns(cfg)
+    blocks = params["blocks"]
+    if len(caches) != len(blocks):
+        raise ValueError(f"{len(caches)} caches for {len(blocks)} layers")
+    x = _embed(params, token[:, None], cfg)  # (B, 1, d)
+    pos = _as_pos(pos, x.device)  # one fill, not one per layer
+    for i, bp in enumerate(blocks):
+        x, caches[i] = _decode_block(bp, bp.bd, x, caches[i], pos, cfg)
+    x = norm(params["final_norm"], x, cfg.norm_eps)
+    return lm_logits(params, x[:, 0], cfg), caches
+
+
+def lm_prefill(params: LM, tokens, cfg: ModelConfig):
+    """Prefill forward: the full backbone over the prompt, the read-out
+    on the last position only (materializing (B, S, V) logits would
+    dwarf every other buffer).  Runs without autograd, so the backbone
+    takes no remat.  Returns logits (B, vocab) float32."""
+    with torch.inference_mode():
+        x, _ = lm_backbone(params, tokens, cfg)
+        return lm_logits(params, x[:, -1], cfg)

@@ -212,7 +212,8 @@ def test_layout_param_count_and_round_trip():
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm-350m",
                                   "zamba2-2.7b", "seamless-m4t-medium"])
 def test_other_families_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="queue 1: the other model families"):
         LM(get_config(arch).reduced(), device="cpu")
 
 

@@ -190,5 +190,9 @@ def test_cli_streams_mode_and_lm_mode(capsys):
     assert "[serve]" in out and "decode-short ticks" in out
     assert "class latency" in out and "class bulk" in out
     assert "on cpu" in out
-    with pytest.raises(SystemExit, match="item 6"):
-        main(["--mode", "lm"])
+    main(["--mode", "lm", "--device", "cpu", "--scale", "tiny",
+          "--batch", "2", "--prompt-len", "4", "--gen", "3"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[serve]")]
+    assert len(lines) == 4 and "decode" in lines[0] and "on cpu" in lines[0]
+    assert lines[3].startswith("[serve] sample continuation (req 0):")
