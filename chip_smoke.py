@@ -119,10 +119,42 @@ CUDA toolkit.  The phases, each of which raises on failure:
                at full width in float32 compute, rtol 1e-3 / atol 1e-3,
                argmax equal.
 
+  10. families — the other model families: (a) mixtral-8x7b,
+               dbrx-132b (8 experts, top-4), zamba2-2.7b and xlstm-350m
+               `reduced()` in float32 compute, 6 guarded steps through
+               `make_train_step` from one tree on the card and on the
+               CPU (losses within rtol 1e-3, equal skip verdicts, every
+               MoE route equal) and `serve_prompts` (batch 2, prompt
+               16, gen 16) as phase 9 (a); seamless-m4t-medium
+               `encdec_loss` and 8 greedy `encdec_decode_step`s, card
+               against CPU; (b) zamba2-2.7b at its published width and
+               depth (54 Mamba2 layers x 2560, the shared block every 6)
+               through `train()`, batch 8 x seq 256 (two SSD chunks per
+               sequence), 12 guarded steps with a corrupt batch every
+               10: finite losses, the card's skip verdicts against the
+               guard replayed on the CPU, ms per step, tokens/s, peak
+               memory, a profiled window of 2 steps; then
+               `serve_prompts` on the trained model, batch 8, prompt
+               128, gen 128, for "cuda" and "cuda-q" (one launch of the
+               backend's kernel per decode tick, none of the others), a
+               profiled window of 8 decode steps and `lm_prefill`'s
+               tokens/s; (c) mixtral-8x7b at its published width with
+               its depth cut to 2 layers (32 do not fit one card):
+               `train()` batch 8 x seq 128, 8 steps (ms per step, peak
+               memory, each step's dropped_frac per layer, the remat
+               recompute's routes equal to the forward's) and
+               `serve_prompts` batch 8, prompt 128, gen 32 with "cuda";
+               (d) decode against forward at full width in float32
+               compute, rtol 1e-3 / atol 1e-3, argmax equal: xlstm-350m,
+               zamba2-2.7b, mixtral at 2 layers with capacity_factor 4,
+               and seamless (`encdec_decode_step` against
+               `decode_train`).
+
 The last three lines are the kernels' JSON record (`launches` from
 phase 5, `launches_serve` from phase 6, `launches_fleet` from phase 7's
-gateway runs, `launches_lm` from phase 9 (b)), the card's name and
-power limit as nvidia-smi prints them, and {"ok": true, "device": ...}.
+gateway runs, `launches_lm` from phase 9 (b), `launches_families` from
+phase 10 (b)), the card's name and power limit as nvidia-smi prints
+them, and {"ok": true, "device": ...}.
 It exits non-zero without a result when CUDA is unavailable or the
 package is not beside it.
 
@@ -1696,32 +1728,62 @@ def _guarded_steps(tree, cfg, dev, gcfg, opt_cfg, run):
     return hist, int(opt.count), int(gs.skipped), kept
 
 
-def _card_vs_cpu(tag, tree, cfg, dev, gcfg, run):
+@contextlib.contextmanager
+def _route_log():
+    """Every MoE routing (`models/moe.py::_route`) made inside, in call
+    order, as its `Route` of device tensors."""
+    from repro_torch.models import moe as moe_mod
+
+    log, real = [], moe_mod._route
+
+    def route(xf, w, cfg):
+        r = real(xf, w, cfg)
+        log.append(r)
+        return r
+
+    with _patched(moe_mod, "_route", route):
+        yield log
+
+
+def _same_routes(a, b):
+    return len(a) == len(b) and all(
+        torch.equal(x.choice.cpu(), y.choice.cpu())
+        and torch.equal(x.keep.cpu(), y.keep.cpu()) for x, y in zip(a, b))
+
+
+def _card_vs_cpu(tag, tree, cfg, dev, gcfg, run, rtol=TRAIN_RTOL,
+                 what="train"):
     """One guarded run on the card and on the CPU from the same tree:
-    the skip verdicts, (count, skipped) and the kept state must agree,
-    the losses within TRAIN_RTOL.  Returns (skipped steps, count,
-    skipped, kept, the largest relative loss difference)."""
+    the skip verdicts, (count, skipped), the kept state and every MoE
+    route (choice and keep) must agree, the losses within `rtol`.
+    Returns (skipped steps, count, skipped, the largest relative loss
+    difference, the MoE routings compared)."""
     from repro_torch.optim import adamw
 
     n = run["steps"]
     opt_cfg = adamw.AdamWConfig(warmup_steps=n // 4 + 1, total_steps=n)
-    gpu = _guarded_steps(tree, cfg, dev, gcfg, opt_cfg, run)
-    cpu = _guarded_steps(tree, cfg, torch.device("cpu"), gcfg, opt_cfg, run)
+    with _route_log() as gpu_routes:
+        gpu = _guarded_steps(tree, cfg, dev, gcfg, opt_cfg, run)
+    with _route_log() as cpu_routes:
+        cpu = _guarded_steps(tree, cfg, torch.device("cpu"), gcfg, opt_cfg,
+                             run)
     skips = [[i for i, h in enumerate(r[0]) if h["skipped"]]
              for r in (gpu, cpu)]
-    check(skips[0] == skips[1], f"train {tag}: skipped steps differ, card "
+    check(skips[0] == skips[1], f"{what} {tag}: skipped steps differ, card "
           f"{skips[0]} vs CPU {skips[1]}")
-    check(gpu[1:3] == cpu[1:3], f"train {tag}: (count, skipped) card "
+    check(gpu[1:3] == cpu[1:3], f"{what} {tag}: (count, skipped) card "
           f"{gpu[1:3]} vs CPU {cpu[1:3]}")
     check(gpu[3] == skips[0] and cpu[3] == skips[1],
-          f"train {tag}: skipped steps {skips[0]}, but only {gpu[3]} on "
+          f"{what} {tag}: skipped steps {skips[0]}, but only {gpu[3]} on "
           f"the card and {cpu[3]} on the CPU left the parameters, m, v "
           f"and the count as they were")
+    check(_same_routes(gpu_routes, cpu_routes), f"{what} {tag}: the MoE "
+          f"routes differ between the card and the CPU")
     rel = max(abs(g["loss"] - c["loss"]) / abs(c["loss"])
               for g, c in zip(gpu[0], cpu[0]))
-    check(rel <= TRAIN_RTOL, f"train {tag}: loss differs by {rel:.3e} "
-          f"relative (> {TRAIN_RTOL})")
-    return skips[0], gpu[1], gpu[2], rel
+    check(rel <= rtol, f"{what} {tag}: loss differs by {rel:.3e} "
+          f"relative (> {rtol})")
+    return skips[0], gpu[1], gpu[2], rel, len(gpu_routes)
 
 
 def _train_card_vs_cpu(seed, smi, dev):
@@ -1738,8 +1800,8 @@ def _train_card_vs_cpu(seed, smi, dev):
              GuardConfig(m=2.0, warmup_steps=2), TRAIN_TRIP)):
         cfg = get_config(TRAIN_ARCH).reduced(**over)
         tree = lm_params_to_numpy(init_lm_params(seed, cfg, device="cpu"))
-        skips, count, skipped, rel = _card_vs_cpu(tag, tree, cfg, dev, gcfg,
-                                                  run)
+        skips, count, skipped, rel, _ = _card_vs_cpu(tag, tree, cfg, dev,
+                                                     gcfg, run)
         log(f"[train] {tag} {cfg.name} reduced ({cfg.compute_dtype}), "
             f"{run['steps']} steps, batch {run['batch']} x seq "
             f"{run['seq']}, corrupt every {run['corrupt_every']}, guard "
@@ -1793,43 +1855,10 @@ def _train_full(smi, dev):
     del model
     torch.cuda.empty_cache()
 
-    corrupt = [i for i in range(1, n) if i % every == 0]
-    skipped = [i for i, h in enumerate(hist) if h["skipped"]]
-    replay = _guard_replay(hist, gcfg)
-    # each step as train()'s straggler detector timed it: from the
-    # batch's upload to the host readback of the step's metrics
-    step_ms = [t * 1e3 for t in summary["step_s"]]
-    steady = step_ms[2:]
-    med = float(np.median(steady))
-    log(f"[train] (b) {cfg.name} full width ({cfg.n_layers} x "
-        f"{cfg.d_model}, vocab {cfg.vocab}, {n_params} parameters), "
-        f"batch {b} x seq {s}, {n} guarded steps in {t_train:.2f} s "
-        f"(set-up included): {med:.3f} ms per step (median of "
-        f"{len(steady)} steps), {b * s / med * 1e3:.1f} tokens/s, peak "
-        f"memory {peak / 2**30:.3f} GiB ({peak} B); on {smi}")
-    for name, vals, fmt in (("ms per step", step_ms, "{:.1f}"),
-                            ("losses", [h["loss"] for h in hist], "{!r}"),
-                            ("grad norms", [h["grad_norm"] for h in hist],
-                             "{!r}")):
-        log(f"[train] (b) {name}: {' '.join(map(fmt.format, vals))}")
-    log(f"[train] (b) corrupt steps {corrupt}, skipped steps {skipped}, "
-        f"straggler trips {summary['straggler_trips']}")
-    for i in corrupt:
-        _, zeta, thr = replay[i]
-        log(f"[train] (b) guard at corrupt step {i}: zeta (loss, grad "
-            f"norm) = ({zeta[0]:.4f}, {zeta[1]:.4f}) against the "
-            f"threshold {thr[0]:.4f}")
     check(len(hist) == n, f"train (b): {len(hist)} steps, not {n}")
-    bad = [i for i, h in enumerate(hist)
-           if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]))]
-    check(not bad, f"train (b): non-finite loss or grad norm at {bad}")
-    check(summary["skipped"] == len(skipped),
-          f"train (b): guard counted {summary['skipped']} skips, the "
-          f"history {len(skipped)}")
-    check([r[0] for r in replay] == [h["skipped"] == 1.0 for h in hist],
-          f"train (b): the card's skips {skipped} differ from the CPU "
-          f"guard's on the same telemetry "
-          f"{[i for i, r in enumerate(replay) if r[0]]}")
+    corrupt, skipped = _report_training(
+        "[train] (b)", cfg, b, s, hist, summary, gcfg, every, t_train,
+        peak, n_params, smi)
     clean = [h["loss"] for i, h in enumerate(hist)
              if i not in corrupt and i not in skipped]
     check(np.mean(clean[-3:]) < np.mean(clean[:3]),
@@ -1840,6 +1869,57 @@ def _train_full(smi, dev):
         + (vocab_padded(cfg) - cfg.vocab) * cfg.d_model
     check(n_params == expect, f"train (b): {n_params} parameters, not "
           f"{expect}")
+
+
+def _report_training(label, cfg, b, s, hist, summary, gcfg, every,
+                     t_train, peak, n_params, smi):
+    """Print a `train()` run (ms per step from its straggler detector,
+    tokens/s, peak memory, losses, grad norms, the guard at each corrupt
+    step) and check it: finite losses, finite grad norms on every step
+    the guard kept, the guard's skip count, and the card's skip verdicts
+    equal to the guard replayed on the CPU over the same telemetry.
+    Returns (corrupt, skipped)."""
+    n = len(hist)
+    corrupt = [i for i in range(1, n) if every and i % every == 0]
+    skipped = [i for i, h in enumerate(hist) if h["skipped"]]
+    replay = _guard_replay(hist, gcfg)
+    # each step as train()'s straggler detector timed it: from the
+    # batch's upload to the host readback of the step's metrics
+    step_ms = [t * 1e3 for t in summary["step_s"]]
+    steady = step_ms[2:]
+    med = float(np.median(steady))
+    log(f"{label} {cfg.name} ({cfg.n_layers} layers x {cfg.d_model}, "
+        f"vocab {cfg.vocab}, {n_params} parameters), batch {b} x seq {s}, "
+        f"{n} guarded steps in {t_train:.2f} s (set-up included): "
+        f"{med:.3f} ms per step (median of {len(steady)} steps), "
+        f"{b * s / med * 1e3:.1f} tokens/s, peak memory "
+        f"{peak / 2**30:.3f} GiB ({peak} B); on {smi}")
+    for name, vals, fmt in (("ms per step", step_ms, "{:.1f}"),
+                            ("losses", [h["loss"] for h in hist], "{!r}"),
+                            ("grad norms", [h["grad_norm"] for h in hist],
+                             "{!r}")):
+        log(f"{label} {name}: {' '.join(map(fmt.format, vals))}")
+    log(f"{label} corrupt steps {corrupt}, skipped steps {skipped}, "
+        f"straggler trips {summary['straggler_trips']}")
+    for i in corrupt:
+        _, zeta, thr = replay[i]
+        log(f"{label} guard at corrupt step {i}: zeta (loss, grad norm) = "
+            f"({zeta[0]:.4f}, {zeta[1]:.4f}) against the threshold "
+            f"{thr[0]:.4f}")
+    # a non-finite grad norm is the guard's to skip (it always flags
+    # one), and a skipped step leaves the weights as they were
+    bad = [i for i, h in enumerate(hist) if not np.isfinite(h["loss"]) or (
+        not np.isfinite(h["grad_norm"]) and i not in skipped)]
+    check(not bad, f"{label}: non-finite loss, or a non-finite grad norm "
+          f"on a step the guard kept, at {bad}")
+    check(summary["skipped"] == len(skipped),
+          f"{label}: guard counted {summary['skipped']} skips, the "
+          f"history {len(skipped)}")
+    check([r[0] for r in replay] == [h["skipped"] == 1.0 for h in hist],
+          f"{label}: the card's skips {skipped} differ from the CPU "
+          f"guard's on the same telemetry "
+          f"{[i for i, r in enumerate(replay) if r[0]]}")
+    return corrupt, skipped
 
 
 def _masked_update(model, cfg, b, s, dev, smi):
@@ -1907,8 +1987,9 @@ def _guard_replay(hist, gcfg):
     return out
 
 
-def _profile_window(model, cfg, b, s, dev, gcfg, smi):
-    """(b)'s profiled window: `PROFILED` steps of the trained model
+def _profile_window(model, cfg, b, s, dev, gcfg, smi, n_steps=PROFILED,
+                    label="[train] (b)"):
+    """(b)'s profiled window: `n_steps` steps of the trained model
     through the step function `train()` runs, each closed as there by
     the host readback of its metrics, after one warmup step that the
     profiler traces and drops.  Prints the device busy share of the
@@ -1929,37 +2010,37 @@ def _profile_window(model, cfg, b, s, dev, gcfg, smi):
     traced = []
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    sched = torch.profiler.schedule(wait=0, warmup=1, active=PROFILED,
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=n_steps,
                                     repeat=1)
     with torch.profiler.profile(
             activities=acts, schedule=sched,
             on_trace_ready=lambda p: traced.append(p.key_averages())) \
             as prof:
-        for step in range(1 + PROFILED):
+        for step in range(1 + n_steps):
             if step == 1:
                 t0 = time.perf_counter()
             toks = torch.from_numpy(stream.batch_at(step)["tokens"])
             model, opt, gs, m = step_fn(model, opt, gs,
                                         {"tokens": toks.to(dev)})
             torch.stack([v.float() for v in m.values()]).cpu()
-            if step == PROFILED:  # before the trace is handed over
+            if step == n_steps:  # before the trace is handed over
                 wall_us = (time.perf_counter() - t0) * 1e6
             prof.step()
     del opt, gs
-    check(len(traced) == 1, f"train (b): the profiler recorded "
+    check(len(traced) == 1, f"{label}: the profiler recorded "
           f"{len(traced)} windows, not 1")
     rows = _profiled_rows(traced[0])
     if not rows:
-        log("[train] (b) profile: the profiler saw no device time "
+        log(f"{label} profile: the profiler saw no device time "
             "(not measured)")
         return
     busy = sum(r[0] for r in rows)
-    log(f"[train] (b) profile: {PROFILED} steps in {wall_us / 1e3:.1f} ms "
-        f"(profiled, {wall_us / 1e3 / PROFILED:.1f} ms per step), device "
+    log(f"{label} profile: {n_steps} steps in {wall_us / 1e3:.1f} ms "
+        f"(profiled, {wall_us / 1e3 / n_steps:.1f} ms per step), device "
         f"busy {busy / 1e3:.1f} ms = {100.0 * busy / wall_us:.1f}% of the "
         f"window; on {smi}")
     for dev_us, key, count in rows[:12]:
-        log(f"[train]   {dev_us / 1e3:9.2f} ms  x{count:<5d} {key[:90]}")
+        log(f"{label}   {dev_us / 1e3:9.2f} ms  x{count:<5d} {key[:90]}")
 
 
 def _sync(dev):
@@ -2088,8 +2169,9 @@ def phase_train(seed, smi):
 # llama3.2-1b at its full published width through `serve()`, (c) decode
 # against forward at full width in float32 compute
 LM_ARCH = "llama3.2-1b"
-# (arch, batch, prompt_len, gen): gemma2's 80 positions pass its window
-LM_CMP = (("llama3.2-1b", 4, 16, 16), ("gemma2-2b", 2, 48, 32))
+# (arch, overrides, batch, prompt_len, gen): gemma2's 80 positions pass
+# its window
+LM_CMP = (("llama3.2-1b", {}, 4, 16, 16), ("gemma2-2b", {}, 2, 48, 32))
 LM_FULL = dict(batch=8, prompt_len=128, gen=128)
 LM_PROFILED = 8  # decode steps in (b)'s profiled window, after 2 dropped
 LM_CHECK = dict(batch=2, seq=32)  # (c)
@@ -2155,17 +2237,18 @@ def _lm_monitor_same(tag, backend, card, replay, batch):
     return n_flags
 
 
-def _lm_card_vs_cpu(seed, smi, dev):
+def _lm_card_vs_cpu(seed, smi, dev, cases=LM_CMP, label="lm"):
     """(a): one parameter tree and prompt set through `serve_prompts` on
     the card ("cuda-q" and "cuda") and on the CPU ("cuda-q", plain),
-    float32 compute."""
+    float32 compute, for each (arch, overrides, batch, prompt_len, gen)
+    of `cases`."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve_prompts
     from repro_torch.models import (init_lm_params, lm_params_from_numpy,
                                     lm_params_to_numpy)
 
-    for arch, b, p, gen in LM_CMP:
-        cfg = get_config(arch).reduced(compute_dtype="float32")
+    for arch, over, b, p, gen in cases:
+        cfg = get_config(arch).reduced(compute_dtype="float32", **over)
         tree = lm_params_to_numpy(init_lm_params(seed, cfg, device="cpu"))
         prompts = torch.randint(0, cfg.vocab, (b, p), generator=torch.
                                 Generator().manual_seed(seed))
@@ -2181,7 +2264,7 @@ def _lm_card_vs_cpu(seed, smi, dev):
         tag = f"(a) {arch}"
         for r in runs.values():
             check(np.array_equal(r["tokens"], cpu["tokens"]),
-                  f"lm {tag}: card tokens differ from the CPU's")
+                  f"{label} {tag}: card tokens differ from the CPU's")
         tel_err = 0.0
         for r in (card, runs["card", "cuda"]):
             for a, c in zip(r["telemetry"], cpu["telemetry"]):
@@ -2189,7 +2272,7 @@ def _lm_card_vs_cpu(seed, smi, dev):
                 err = (a - c.double()).abs()
                 check(bool((err <= LM_TEL_ATOL + LM_TEL_RTOL
                             * c.double().abs()).all()),
-                      f"lm {tag}: telemetry differs beyond rtol "
+                      f"{label} {tag}: telemetry differs beyond rtol "
                       f"{LM_TEL_RTOL} (max abs err {float(err.max())})")
                 tel_err = max(tel_err, float(err.max()))
         flags = {}
@@ -2198,9 +2281,9 @@ def _lm_card_vs_cpu(seed, smi, dev):
                 tag, backend, runs["card", backend],
                 _lm_replay(runs["card", backend], backend), b)
         check(card["flagged_requests"] == cpu["flagged_requests"],
-              f"lm {tag}: flagged requests {card['flagged_requests']} on "
+              f"{label} {tag}: flagged requests {card['flagged_requests']} on "
               f"the card, {cpu['flagged_requests']} on the CPU")
-        log(f"[lm] {tag} reduced (f32), batch {b}, prompt {p}, gen {gen} "
+        log(f"[{label}] {tag} reduced (f32), batch {b}, prompt {p}, gen {gen} "
             f"(max_seq {p + gen}, window {cfg.window}): tokens equal on "
             f"the card ('cuda-q', 'cuda') and the CPU, telemetry within "
             f"{tel_err:.3e} abs; the card's 'cuda-q' monitor = the CPU's "
@@ -2210,90 +2293,87 @@ def _lm_card_vs_cpu(seed, smi, dev):
             f"{smi}")
 
 
-def _lm_full(seed, smi, dev):
-    """(b): `serve()` at llama3.2-1b's full width, once per TEDA
-    backend, with the kernels' launch counts set to 0 before the pair
-    and read after it."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve
-
-    cfg = get_config(LM_ARCH)
-    b, p, gen = (LM_FULL[k] for k in ("batch", "prompt_len", "gen"))
+def _serve_both(label, cfg, b, p, gen, run, smi, backends=("cuda",
+                                                            "cuda-q")):
+    """`run(backend)` (a `serve` or `serve_prompts` result) once per TEDA
+    backend, with the kernels' launch counts set to 0 before the runs
+    and read after each: exactly `gen` launches of the backend's own
+    kernel in `gen` + 1 ticks, none of the others, tokens in range and
+    equal across the runs, finite telemetry.  Returns (the launches per
+    kernel over the runs, the runs)."""
     mods = _kernel_mods()
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for mod in mods.values():
         mod.launches = 0
     runs, counts = {}, {}
-    for backend in ("cuda", "cuda-q"):
+    for backend in backends:
         before = {n: mod.launches for n, mod in mods.items()}
         t0 = time.perf_counter()
-        runs[backend] = serve(cfg, b, p, gen, seed=seed, backend=backend,
-                              fmt=_lm_fmt(backend), device=dev)
+        runs[backend] = res = run(backend)
         wall = time.perf_counter() - t0
         counts[backend] = {n: mod.launches - before[n]
                            for n, mod in mods.items()}
-        res = runs[backend]
         sched = res["_scheduler"]
         ticks, calls = sched.tick_no, int(sched._c_calls.value)
         own = counts[backend][KERNEL_OF[backend]]
         others = {n: c for n, c in counts[backend].items()
                   if n != KERNEL_OF[backend]}
         check(own == calls == gen and ticks == gen + 1,
-              f"lm (b) {backend}: {own} launches, {calls} fused calls in "
+              f"{label} {backend}: {own} launches, {calls} fused calls in "
               f"{ticks} ticks for {gen} decode ticks")
-        check(not any(others.values()), f"lm (b) {backend}: other "
+        check(not any(others.values()), f"{label} {backend}: other "
               f"kernels launched {others}")
         check(res["tokens"].shape == (b, gen)
               and ((res["tokens"] >= 0) & (res["tokens"] < cfg.vocab)).all(),
-              f"lm (b) {backend}: tokens out of range")
+              f"{label} {backend}: tokens out of range")
         tel = np.concatenate([t.reshape(-1, b, 2)
                               for t in res["telemetry"]])
-        check(np.isfinite(tel).all(), f"lm (b) {backend}: non-finite "
+        check(np.isfinite(tel).all(), f"{label} {backend}: non-finite "
               "telemetry")
         ms_step = b * 1e3 / res["decode_tok_s"]
-        log(f"[lm] (b) {cfg.name} full width ({cfg.n_layers} x "
-            f"{cfg.d_model}, vocab {cfg.vocab}), batch {b}, prompt {p}, "
-            f"gen {gen}, backend {backend!r}: prefill (teacher-forced "
-            f"decode) {res['prefill_tok_s']:.1f} tok/s, decode "
+        log(f"{label} {cfg.name} ({cfg.n_layers} layers x {cfg.d_model}, "
+            f"vocab {cfg.vocab}), batch {b}, prompt {p}, gen {gen}, "
+            f"backend {backend!r}: prefill (teacher-forced decode) "
+            f"{res['prefill_tok_s']:.1f} tok/s, decode "
             f"{res['decode_tok_s']:.1f} tok/s = {ms_step:.3f} ms per "
             f"decode step of {b} tokens ({ms_step / b:.3f} ms per token); "
             f"monitor: {own} {KERNEL_OF[backend]} launches in {gen} "
             f"decode ticks = {own / gen:.3f} per tick (+1 drain tick "
             f"that only retires, {ticks} ticks), flagged requests "
-            f"{res['flagged_requests']}; serve() wall {wall:.2f} s "
-            f"(weights drawn on the CPU included); on {smi}")
+            f"{res['flagged_requests']}; wall {wall:.2f} s; on {smi}")
     peak = torch.cuda.max_memory_allocated()
-    check(np.array_equal(runs["cuda"]["tokens"], runs["cuda-q"]["tokens"]),
-          "lm (b): the two runs decoded different tokens")
-    log(f"[lm] (b) peak memory {peak / 2**30:.3f} GiB ({peak} B); "
-        f"sample continuation (req 0): "
-        f"{runs['cuda']['tokens'][0][:12].tolist()}; on {smi}")
-    return {n: sum(c[n] for c in counts.values()) for n in mods}
+    first = runs[backends[0]]["tokens"]
+    check(all(np.array_equal(r["tokens"], first) for r in runs.values()),
+          f"{label}: the runs decoded different tokens")
+    log(f"{label} peak memory {peak / 2**30:.3f} GiB ({peak} B) over the "
+        f"serving runs; sample continuation (req 0): "
+        f"{first[0][:12].tolist()}; on {smi}")
+    return {n: sum(c[n] for c in counts.values()) for n in mods}, runs
 
 
-def _lm_profile_and_prefill(seed, smi, dev):
-    """(b)'s device view: `lm_prefill`'s own tokens/s at (b)'s prompt
-    shape, then a profiled window of `LM_PROFILED` decode steps run as
-    `serve_prompts` runs them (step, one (B, 2) fetch, one "cuda"
-    monitor tick), after 2 steps the profiler traces and drops.  Then
-    (c): decode against forward at full width in float32 compute."""
-    import dataclasses
-
+def _lm_full(seed, smi, dev):
+    """(b): `serve()` at llama3.2-1b's full width, once per TEDA
+    backend (weights drawn on the CPU in each run)."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import (close_monitor, make_decode_step,
-                                          monitor_tick, open_monitor)
-    from repro_torch.models import (init_cache, init_lm_params,
-                                    lm_decode_step, lm_forward, lm_prefill)
+    from repro_torch.launch.serve import serve
 
     cfg = get_config(LM_ARCH)
-    b, p = LM_FULL["batch"], LM_FULL["prompt_len"]
-    model = init_lm_params(seed, cfg, device=dev)
-    prompts = torch.randint(0, cfg.vocab, (b, p), generator=torch.
-                            Generator().manual_seed(seed)).to(dev)
+    b, p, gen = (LM_FULL[k] for k in ("batch", "prompt_len", "gen"))
+    torch.cuda.empty_cache()
+    launches, _ = _serve_both(
+        "[lm] (b)", cfg, b, p, gen,
+        lambda backend: serve(cfg, b, p, gen, seed=seed, backend=backend,
+                              fmt=_lm_fmt(backend), device=dev), smi)
+    return launches
+
+
+def _prefill_rate(label, model, cfg, prompts, smi, reps=5):
+    """`lm_prefill`'s own tokens/s at the prompt batch's shape."""
+    from repro_torch.models import lm_prefill
+
+    b, p = prompts.shape
     lm_prefill(model, prompts, cfg)
-    reps = 5
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -2301,13 +2381,24 @@ def _lm_profile_and_prefill(seed, smi, dev):
     torch.cuda.synchronize()
     t_pre = (time.perf_counter() - t0) / reps
     check(logits.shape == (b, cfg.vocab)
-          and bool(torch.isfinite(logits).all()), "lm (b): lm_prefill "
+          and bool(torch.isfinite(logits).all()), f"{label}: lm_prefill "
           "logits not finite or of the wrong shape")
-    log(f"[lm] (b) lm_prefill (the full backbone over the prompt, bf16 "
-        f"compute, read-out on the last position) batch {b} x {p}: "
-        f"{t_pre * 1e3:.3f} ms per call (mean of {reps}, synchronized), "
-        f"{b * p / t_pre:.1f} tok/s; on {smi}")
+    log(f"{label} lm_prefill (the full backbone over the prompt, "
+        f"{cfg.compute_dtype} compute, read-out on the last position) "
+        f"batch {b} x {p}: {t_pre * 1e3:.3f} ms per call (mean of {reps}, "
+        f"synchronized), {b * p / t_pre:.1f} tok/s; on {smi}")
 
+
+def _decode_profile(label, model, cfg, prompts, smi):
+    """A profiled window of `LM_PROFILED` decode steps run as
+    `serve_prompts` runs them (step, one (B, 2) fetch, one "cuda"
+    monitor tick), after 2 steps the profiler traces and drops."""
+    from repro_torch.launch.serve import (close_monitor, make_decode_step,
+                                          monitor_tick, open_monitor)
+    from repro_torch.models import init_cache
+
+    b, p = prompts.shape
+    dev = prompts.device
     step = make_decode_step(cfg, greedy=True)
     caches = init_cache(cfg, b, p + LM_PROFILED + 2, dtype=torch.float32,
                         device=dev)
@@ -2332,46 +2423,77 @@ def _lm_profile_and_prefill(seed, smi, dev):
                 wall_us = (time.perf_counter() - t0) * 1e6
             prof.step()
     close_monitor(sched, b, 2 + LM_PROFILED)
-    check(len(traced) == 1, f"lm (b): the profiler recorded {len(traced)} "
-          "windows, not 1")
+    check(len(traced) == 1, f"{label}: the profiler recorded "
+          f"{len(traced)} windows, not 1")
     rows = _profiled_rows(traced[0])
-    if rows:
-        busy = sum(r[0] for r in rows)
-        log(f"[lm] (b) profile: {LM_PROFILED} decode steps (with their "
-            f"fetch and 'cuda' monitor tick) in {wall_us / 1e3:.1f} ms "
-            f"(profiled, {wall_us / 1e3 / LM_PROFILED:.2f} ms per step), "
-            f"device busy {busy / 1e3:.2f} ms = "
-            f"{100.0 * busy / wall_us:.1f}% of the window; on {smi}")
-        for dev_us, key, count in rows[:12]:
-            log(f"[lm]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
-    else:
-        log("[lm] (b) profile: the profiler saw no device time "
+    if not rows:
+        log(f"{label} profile: the profiler saw no device time "
             "(not measured)")
-    del caches, sched
+        return
+    busy = sum(r[0] for r in rows)
+    log(f"{label} profile: {LM_PROFILED} decode steps (with their fetch "
+        f"and 'cuda' monitor tick) in {wall_us / 1e3:.1f} ms (profiled, "
+        f"{wall_us / 1e3 / LM_PROFILED:.2f} ms per step), device busy "
+        f"{busy / 1e3:.2f} ms = {100.0 * busy / wall_us:.1f}% of the "
+        f"window; on {smi}")
+    for dev_us, key, count in rows[:12]:
+        log(f"{label}   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
 
-    # (c) float32 compute: the same weights read with another cfg
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    cb, cs = LM_CHECK["batch"], LM_CHECK["seq"]
-    toks = prompts[:cb, :cs]
-    with torch.inference_mode():
-        full, _ = lm_forward(model, toks, cfg32)
-        caches = init_cache(cfg32, cb, cs, dtype=torch.float32, device=dev)
-        outs = []
-        for t in range(cs):
-            lg, caches = lm_decode_step(model, toks[:, t], t, caches, cfg32)
-            outs.append(lg)
-    dec = torch.stack(outs, dim=1)
+
+def _close_logits(label, dec, full, smi, what):
+    """Decode logits against the forward's: rtol 1e-3 / atol 1e-3,
+    argmax equal at every position."""
     err = (dec.double() - full.double()).abs()
     ok = err <= 1e-3 + 1e-3 * full.double().abs()
     same = bool(torch.equal(dec.argmax(-1), full.argmax(-1)))
-    log(f"[lm] (c) {cfg.name} full width, f32 compute, batch {cb} x "
-        f"{cs}: decode step by step against lm_forward, largest "
-        f"difference {float(err.max()):.3e} (rtol 1e-3 / atol 1e-3: "
-        f"{'held' if bool(ok.all()) else 'FAILED'}), argmax "
-        f"{'equal' if same else 'DIFFERENT'} at every position; on {smi}")
-    check(bool(ok.all()), "lm (c): decode and forward logits differ "
+    log(f"{label} {what}: largest difference {float(err.max()):.3e} "
+        f"(rtol 1e-3 / atol 1e-3: {'held' if bool(ok.all()) else 'FAILED'}"
+        f"), argmax {'equal' if same else 'DIFFERENT'} at every position; "
+        f"on {smi}")
+    check(bool(ok.all()), f"{label}: decode and forward logits differ "
           "beyond rtol 1e-3 / atol 1e-3")
-    check(same, "lm (c): decode and forward argmax differ")
+    check(same, f"{label}: decode and forward argmax differ")
+
+
+def _decode_vs_forward(label, model, cfg, toks, smi):
+    """Decoding the tokens step by step against `lm_forward` on them."""
+    from repro_torch.models import init_cache, lm_decode_step, lm_forward
+
+    cb, cs = toks.shape
+    with torch.inference_mode():
+        full, _ = lm_forward(model, toks, cfg)
+        caches = init_cache(cfg, cb, cs, dtype=torch.float32,
+                            device=toks.device)
+        outs = []
+        for t in range(cs):
+            lg, caches = lm_decode_step(model, toks[:, t], t, caches, cfg)
+            outs.append(lg)
+    _close_logits(label, torch.stack(outs, dim=1), full, smi,
+                  f"{cfg.name} full width, {cfg.compute_dtype} compute, "
+                  f"batch {cb} x {cs}: decode step by step against "
+                  f"lm_forward")
+
+
+def _lm_profile_and_prefill(seed, smi, dev):
+    """(b)'s device view: `lm_prefill`'s tokens/s and a profiled decode
+    window at (b)'s shapes; then (c): decode against forward at full
+    width in float32 compute."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm_params
+
+    cfg = get_config(LM_ARCH)
+    b, p = LM_FULL["batch"], LM_FULL["prompt_len"]
+    model = init_lm_params(seed, cfg, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (b, p), generator=torch.
+                            Generator().manual_seed(seed)).to(dev)
+    _prefill_rate("[lm] (b)", model, cfg, prompts, smi)
+    _decode_profile("[lm] (b)", model, cfg, prompts, smi)
+    # (c) float32 compute: the same weights read with another cfg
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    _decode_vs_forward("[lm] (c)", model, cfg32,
+                       prompts[:LM_CHECK["batch"], :LM_CHECK["seq"]], smi)
 
 
 def phase_lm(seed, smi):
@@ -2384,6 +2506,296 @@ def phase_lm(seed, smi):
     _lm_profile_and_prefill(seed, smi, dev)
     torch.cuda.empty_cache()
     log(f"[lm] phase 9 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ------------------------------------------------------------ families
+# phase 10: (a) the card against the CPU at the reduced widths, (b)
+# zamba2-2.7b at its published width and depth, (c) mixtral-8x7b at its
+# published width with its depth cut, (d) decode against forward at full
+# width in float32 compute
+FAM_CMP = (("mixtral-8x7b", {}), ("dbrx-132b", dict(n_experts=8, top_k=4)),
+           ("zamba2-2.7b", {}), ("xlstm-350m", {}))
+FAM_TRAIN_CMP = dict(batch=2, seq=64, steps=6, corrupt_every=4)
+FAM_GUARD = dict(m=2.0, warmup_steps=2)
+FAM_SERVE_CMP = dict(batch=2, prompt_len=16, gen=16)
+FAM_RTOL = 1e-3  # f32 compute on two devices
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_CMP = dict(batch=2, src=32, tgt=32, steps=8)
+ZAMBA_ARCH = "zamba2-2.7b"
+# the reference's `init_lm_params` tree of the published config, counted
+ZAMBA_PARAMS = 2_353_576_608
+# 8 x 256: each sequence is two 128-row SSD chunks, so the carry runs
+ZAMBA_TRAIN = dict(batch=8, seq=256, steps=12, corrupt_every=10)
+ZAMBA_PROFILED = 2
+ZAMBA_SERVE = dict(batch=8, prompt_len=128, gen=128)
+MIXTRAL_ARCH = "mixtral-8x7b"
+# 32 layers hold 46.7e9 parameters (~187 GB in f32): one card holds 2
+# with their gradients and AdamW moments (~48.5 GB)
+MIXTRAL_LAYERS = 2
+MIXTRAL_TRAIN = dict(batch=8, seq=128, steps=8)
+MIXTRAL_SERVE = dict(batch=8, prompt_len=128, gen=32)
+FAM_CHECK = dict(batch=2, seq=32)  # (d)
+
+
+def _fam_card_vs_cpu(seed, smi, dev):
+    """(a): guarded steps and `serve_prompts` on the card and on the CPU
+    from one tree per family (f32 compute), and the encoder-decoder's
+    loss and decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import GuardConfig
+    from repro_torch.models import init_lm_params, lm_params_to_numpy
+
+    gcfg = GuardConfig(**FAM_GUARD)
+    run = FAM_TRAIN_CMP
+    for arch, over in FAM_CMP:
+        cfg = get_config(arch).reduced(compute_dtype="float32", **over)
+        tree = lm_params_to_numpy(init_lm_params(seed, cfg, device="cpu"))
+        skips, count, skipped, rel, n_routes = _card_vs_cpu(
+            f"(a) {arch}", tree, cfg, dev, gcfg, run, rtol=FAM_RTOL,
+            what="families")
+        if cfg.family == "moe":
+            check(n_routes == run["steps"] * cfg.n_layers,
+                  f"families (a) {arch}: {n_routes} routings, not "
+                  f"{run['steps'] * cfg.n_layers}")
+        log(f"[families] (a) {arch} reduced (f32), {run['steps']} guarded "
+            f"steps, batch {run['batch']} x seq {run['seq']}, corrupt "
+            f"every {run['corrupt_every']}, guard m {gcfg.m} warmup "
+            f"{gcfg.warmup_steps}: card = CPU on every skip verdict "
+            f"(skipped steps {skips}), (count, skipped) ({count}, "
+            f"{skipped}), {n_routes} MoE routings equal (choice and keep), "
+            f"loss within {rel:.3e} relative; on {smi}")
+    b, p, gen = (FAM_SERVE_CMP[k] for k in ("batch", "prompt_len", "gen"))
+    _lm_card_vs_cpu(seed, smi, dev, label="families",
+                    cases=tuple((arch, over, b, p, gen)
+                                for arch, over in FAM_CMP))
+    _encdec_card_vs_cpu(seed, smi, dev)
+
+
+def _encdec_card_vs_cpu(seed, smi, dev):
+    """(a) seamless: `encdec_loss` and greedy `encdec_decode_step`s from
+    one tree and batch on the card and on the CPU, f32 compute."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (build_cross_cache, encdec_decode_step,
+                                    encdec_loss, encdec_params_from_numpy,
+                                    encdec_params_to_numpy, encode,
+                                    init_encdec_cache, init_encdec_params)
+
+    cfg = get_config(ENCDEC_ARCH).reduced(compute_dtype="float32")
+    tree = encdec_params_to_numpy(init_encdec_params(seed, cfg,
+                                                     device="cpu"))
+    b, ss, st, n = (ENCDEC_CMP[k] for k in ("batch", "src", "tgt", "steps"))
+    rng = np.random.default_rng(seed)
+    src = rng.normal(size=(b, ss, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab, size=(b, st + 1))
+    out = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = encdec_params_from_numpy(tree, cfg, d)
+        batch = {"src_emb": torch.from_numpy(src).to(d),
+                 "tokens": torch.from_numpy(toks).to(d)}
+        with torch.inference_mode():
+            loss, _ = encdec_loss(model, batch, cfg)
+            caches = init_encdec_cache(cfg, b, n, ss, dtype=torch.float32,
+                                       device=d)
+            caches["cross"] = build_cross_cache(
+                model, encode(model, batch["src_emb"], cfg), cfg,
+                dtype=torch.float32)
+            tok, logits = batch["tokens"][:, 0], []
+            for i in range(n):
+                lg, caches = encdec_decode_step(model, tok, i, caches, cfg)
+                tok = lg.argmax(-1)
+                logits.append(lg[:, :cfg.vocab].cpu())
+        out[where] = (float(loss), torch.stack(logits, dim=1))
+    (lc, gc), (lp, gp) = out["card"], out["cpu"]
+    rel = abs(lc - lp) / abs(lp)
+    check(rel <= FAM_RTOL, f"families (a) {ENCDEC_ARCH}: encdec_loss "
+          f"differs by {rel:.3e} relative")
+    err = (gc.double() - gp.double()).abs()
+    check(bool((err <= 1e-3 + 1e-3 * gp.double().abs()).all())
+          and torch.equal(gc.argmax(-1), gp.argmax(-1)),
+          f"families (a) {ENCDEC_ARCH}: decode logits differ (max abs "
+          f"err {float(err.max()):.3e}) or the greedy tokens do")
+    log(f"[families] (a) {ENCDEC_ARCH} reduced (f32), source {b} x {ss}, "
+        f"target {st}: encdec_loss card {lc!r} vs CPU {lp!r} ({rel:.3e} "
+        f"relative); {n} greedy encdec_decode_steps: tokens equal, logits "
+        f"within {float(err.max()):.3e} abs; on {smi}")
+
+
+def _zamba2_full(seed, smi, dev):
+    """(b): zamba2-2.7b at its published width and depth through
+    `train()`, then `serve_prompts` on the trained model for "cuda" and
+    "cuda-q", a profiled decode window, `lm_prefill`'s tokens/s and (d)
+    decode against forward in f32.  Returns the kernels' launches over
+    the two serving runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import GuardConfig
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import serve_prompts
+
+    cfg = get_config(ZAMBA_ARCH)
+    label = "[families] (b)"
+    b, s, n, every = (ZAMBA_TRAIN[k] for k in ("batch", "seq", "steps",
+                                               "corrupt_every"))
+    gcfg = GuardConfig(m=3.0, warmup_steps=8)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, hist, summary = train_mod.train(
+        cfg, n, b, s, None, device=dev, log_every=4, guard_cfg=gcfg,
+        corrupt_every=every)
+    t_train = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(len(hist) == n, f"{label}: {len(hist)} steps, not {n}")
+    check(n_params == ZAMBA_PARAMS, f"{label}: {n_params} parameters, not "
+          f"the published config's {ZAMBA_PARAMS}")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+          f"{label}: non-finite parameters after training")
+    _report_training(label, cfg, b, s, hist, summary, gcfg, every, t_train,
+                     peak, n_params, smi)
+    _profile_window(model, cfg, b, s, dev, gcfg, smi, n_steps=ZAMBA_PROFILED,
+                    label=label)
+    torch.cuda.empty_cache()
+
+    bs, p, gen = (ZAMBA_SERVE[k] for k in ("batch", "prompt_len", "gen"))
+    prompts = torch.randint(0, cfg.vocab, (bs, p), generator=torch.
+                            Generator().manual_seed(seed)).to(dev)
+    launches, _ = _serve_both(
+        label, cfg, bs, p, gen,
+        lambda backend: serve_prompts(model, prompts, cfg, gen,
+                                      backend=backend,
+                                      fmt=_lm_fmt(backend)), smi)
+    _decode_profile(label, model, cfg, prompts, smi)
+    _prefill_rate(label, model, cfg, prompts, smi)
+    _decode_vs_forward("[families] (d)", model,
+                       dataclasses.replace(cfg, compute_dtype="float32"),
+                       prompts[:FAM_CHECK["batch"], :FAM_CHECK["seq"]], smi)
+    return launches
+
+
+def _mixtral_full(seed, smi, dev):
+    """(c): mixtral-8x7b at its published width, depth cut to
+    `MIXTRAL_LAYERS`, through `train()` (each step's dropped_frac per
+    layer from the routes), `serve_prompts` on the trained model with
+    "cuda", and (d) decode against forward in f32 with capacity_factor
+    4 (no assignment dropped on either path)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import serve_prompts
+
+    full = get_config(MIXTRAL_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MIXTRAL_LAYERS)
+    label = "[families] (c)"
+    b, s, n = (MIXTRAL_TRAIN[k] for k in ("batch", "seq", "steps"))
+    log(f"{label} {cfg.name}: depth cut from {full.n_layers} to "
+        f"{cfg.n_layers} layers (the full depth's f32 state does not fit "
+        f"one card); width as published")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _route_log() as routes:
+        model, hist, summary = train_mod.train(cfg, n, b, s, None,
+                                               device=dev, log_every=4)
+    t_train = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    # per step: each layer's routing, then (under remat) the backward's
+    # recompute, in reverse layer order
+    fwd = cfg.n_layers
+    per = fwd * (2 if cfg.remat else 1)
+    check(len(routes) == n * per, f"{label}: {len(routes)} routings in {n} "
+          f"steps, not {n * per}")
+    steps = [routes[i * per:(i + 1) * per] for i in range(n)]
+    check(not cfg.remat or all(_same_routes(st[:fwd], st[fwd:][::-1])
+                               for st in steps),
+          f"{label}: the remat recompute routed differently")
+    dropped = [[float(1.0 - r.keep.float().mean()) for r in st[:fwd]]
+               for st in steps]
+    del routes
+    _report_training(label, cfg, b, s, hist, summary, train_mod.GUARD_CFG,
+                     0, t_train, peak, n_params, smi)
+    log(f"{label} dropped_frac per step (one value per layer): "
+        + " ".join("(" + ", ".join(f"{x:.4f}" for x in row) + ")"
+                   for row in dropped))
+    torch.cuda.empty_cache()
+
+    bs, p, gen = (MIXTRAL_SERVE[k] for k in ("batch", "prompt_len", "gen"))
+    prompts = torch.randint(0, cfg.vocab, (bs, p), generator=torch.
+                            Generator().manual_seed(seed)).to(dev)
+    _serve_both(label, cfg, bs, p, gen,
+                lambda backend: serve_prompts(model, prompts, cfg, gen,
+                                              backend=backend), smi,
+                backends=("cuda",))
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                capacity_factor=4.0)
+    _decode_vs_forward("[families] (d)", model, cfg32,
+                       prompts[:FAM_CHECK["batch"], :FAM_CHECK["seq"]], smi)
+
+
+def _fam_decode_checks(seed, smi, dev):
+    """(d) for xlstm-350m (24 blocks, 18 mLSTM + 6 sLSTM) and
+    seamless-m4t-medium (`encdec_decode_step` against `decode_train`),
+    each at its published width, f32 compute."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (build_cross_cache, decode_train,
+                                    encdec_decode_step, encode,
+                                    init_encdec_cache, init_encdec_params,
+                                    init_lm_params)
+
+    cb, cs = FAM_CHECK["batch"], FAM_CHECK["seq"]
+    gen = torch.Generator().manual_seed(seed)
+    cfg = dataclasses.replace(get_config("xlstm-350m"),
+                              compute_dtype="float32")
+    model = init_lm_params(seed, cfg, device=dev)
+    toks = torch.randint(0, cfg.vocab, (cb, cs), generator=gen).to(dev)
+    _decode_vs_forward("[families] (d)", model, cfg, toks, smi)
+    del model
+
+    cfg = dataclasses.replace(get_config(ENCDEC_ARCH),
+                              compute_dtype="float32")
+    model = init_encdec_params(seed, cfg, device=dev)
+    src = torch.randn((cb, cs, cfg.d_model), generator=gen).to(dev)
+    toks = torch.randint(0, cfg.vocab, (cb, cs), generator=gen).to(dev)
+    with torch.inference_mode():
+        enc = encode(model, src, cfg)
+        full = decode_train(model, enc, toks, cfg)
+        caches = init_encdec_cache(cfg, cb, cs, cs, dtype=torch.float32,
+                                   device=dev)
+        caches["cross"] = build_cross_cache(model, enc, cfg,
+                                            dtype=torch.float32)
+        outs = []
+        for t in range(cs):
+            lg, caches = encdec_decode_step(model, toks[:, t], t, caches,
+                                            cfg)
+            outs.append(lg)
+    _close_logits("[families] (d)", torch.stack(outs, dim=1), full, smi,
+                  f"{cfg.name} full width ({cfg.enc_layers} + "
+                  f"{cfg.dec_layers} layers x {cfg.d_model}, vocab "
+                  f"{cfg.vocab}), f32 compute, source {cb} x {cs}: "
+                  f"encdec_decode_step against decode_train")
+
+
+def phase_families(seed, smi):
+    """Phase 10: the other model families, training and decode.
+    Returns the kernels' launches over (b)'s two serving runs."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    _fam_card_vs_cpu(seed, smi, dev)
+    launches = _zamba2_full(seed, smi, dev)
+    torch.cuda.empty_cache()
+    _mixtral_full(seed, smi, dev)
+    torch.cuda.empty_cache()
+    _fam_decode_checks(seed, smi, dev)
+    torch.cuda.empty_cache()
+    log(f"[families] phase 10 took {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -2481,18 +2893,20 @@ def main(argv=None):
     del singles
     phase_train(args.seed, smi)
     lm = phase_lm(args.seed, smi)
+    families = phase_families(args.seed, smi)
     for name, rec in records.items():
         rec["launches"] = launches[name]
         rec["launches_serve"] = served[name]
         rec["launches_fleet"] = fleet[name]
         rec["launches_lm"] = lm[name]
+        rec["launches_families"] = families[name]
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "repro" or m.startswith("repro.")
                   for m in sys.modules), "the JAX package was imported")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_serve", "launches_fleet", "launches_lm",
-            "max_abs_err", "ms",
+            "launches_families", "max_abs_err", "ms",
             "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}

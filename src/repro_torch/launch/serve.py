@@ -32,6 +32,12 @@ their plain versions).
             --scale tiny --batch 4 --prompt-len 32 --gen 32 --device cpu
         PYTHONPATH=src python -m repro_torch.launch.serve \\
             --arch llama3.2-1b --scale full --backend cuda
+        PYTHONPATH=src python -m repro_torch.launch.serve \\
+            --arch zamba2-2.7b --scale tiny --device cpu --backend cuda-q
+
+    Every decoder family serves (dense, MoE, the Mamba2 hybrid, xLSTM:
+    `init_cache` gives each block kind its cache); the encoder-decoder
+    is refused, as in the reference.
 
 The telemetry is computed on the device inside the decode step; the
 loop hands the host-side scheduler one small (B, 2) array per
@@ -321,6 +327,8 @@ def serve_prompts(params, prompts, cfg, gen: int, *, m: float = 3.5,
     the (B, 2) telemetry fetch that feeds the monitor."""
     from repro_torch.models import init_cache, lm_decode_step
 
+    if cfg.family == "encdec":
+        raise ValueError("serve targets decoder-only LMs")
     dev = next(params.parameters()).device
     if not isinstance(prompts, torch.Tensor):  # numpy: a writable copy
         prompts = torch.from_numpy(np.array(prompts))

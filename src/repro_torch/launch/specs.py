@@ -1,8 +1,10 @@
 """The training step builder and the guard's default configuration.
 
-The reference's module also builds `ShapeDtypeStruct` cells for XLA's
-dry run; those are XLA tooling and wait for ROADMAP.md queue 1:
-multi-device and XLA tooling.
+The step trains every family: `lm_loss` for the decoder LMs (dense,
+MoE, the Mamba2 hybrid, xLSTM), `encdec_loss` for the encoder-decoder,
+whose batches carry `src_emb` beside `tokens`.  The reference's module
+also builds `ShapeDtypeStruct` cells for XLA's dry run; those are XLA
+tooling and wait for ROADMAP.md queue 1: multi-device and XLA tooling.
 """
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import torch
 
 from repro_torch.core.guard import GuardConfig, guard_step
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.encdec import encdec_loss
 from repro_torch.models.transformer import lm_loss
 from repro_torch.optim import adamw
 
@@ -28,18 +31,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     and the optimizer's moments are updated in place, and every metric
     is a 0-dim device tensor (nothing is read back to the host).  With
     `accum_steps` = k the batch is split into k microbatches whose
-    gradients are summed in `opt_cfg.grad_dtype` and divided by k.
+    gradients are summed in `opt_cfg.grad_dtype` and divided by k
+    (every batch entry, `src_emb` included, is split along its first
+    axis).
     """
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encoder-decoder loss is not ported yet (ROADMAP.md "
-            "queue 1: the other model families)")
+    loss_fn = encdec_loss if cfg.family == "encdec" else lm_loss
 
     def train_step(model, opt_state, guard_state, batch):
         params = dict(model.named_parameters())
         if accum_steps == 1:
             model.zero_grad(set_to_none=True)
-            loss, metrics = lm_loss(model, batch, cfg)
+            loss, metrics = loss_fn(model, batch, cfg)
             loss.backward()
             grads = {n: p.grad for n, p in params.items()}
         else:
@@ -49,7 +51,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                      for n, p in params.items()}
             lsum, per_micro = 0.0, []
             for micro in _split(batch, k):
-                loss_i, m_i = lm_loss(model, micro, cfg)
+                loss_i, m_i = loss_fn(model, micro, cfg)
                 gi = torch.autograd.grad(loss_i, list(params.values()))
                 for a, g in zip(grads.values(), gi):
                     a.add_(g.to(acc_dt))

@@ -29,15 +29,17 @@ from repro_torch.core.guard import StragglerDetector, guard_init
 from repro_torch.data import TokenStream
 from repro_torch.engine.engine import resolve_device
 from repro_torch.launch.specs import GUARD_CFG, make_train_step
-from repro_torch.models import init_lm_params
+from repro_torch.models import init_encdec_params, init_lm_params
 from repro_torch.optim import adamw
 
 __all__ = ["build_state", "train", "scaled_config", "main"]
 
 
 def build_state(cfg, seed: int = 0, device=None, guard_cfg=None):
-    """(model, optimizer state, guard state) on `device`."""
-    model = init_lm_params(seed, cfg, device)
+    """(model, optimizer state, guard state) on `device`: an `EncDec`
+    for the encoder-decoder family, else an `LM`."""
+    init = init_encdec_params if cfg.family == "encdec" else init_lm_params
+    model = init(seed, cfg, device)
     params = dict(model.named_parameters())
     return model, adamw.init(params), guard_init(guard_cfg or GUARD_CFG,
                                                  device)
@@ -55,7 +57,9 @@ def train(cfg, steps: int, batch: int, seq: int, ckpt_dir: str | None,
     `resume`).  Returns (model, history, summary): one dict of host
     floats per step run, and the guard's and the straggler detector's
     totals with each step's seconds as the straggler detector timed
-    them (`step_s`)."""
+    them (`step_s`).  An encoder-decoder config fails at its first step
+    with a KeyError, as the reference's `train` does: `TokenStream`
+    yields no `src_emb` (ROADMAP.md queue 3)."""
     dev = resolve_device(device)
     opt_cfg = opt_cfg or adamw.AdamWConfig(
         warmup_steps=min(100, steps // 4 + 1), total_steps=steps)

@@ -1,9 +1,11 @@
 """GQA attention: the flash-style chunked training path and the cached
 one-token decode path.
 
-Covers the dense variants: grouped KV heads, RoPE, QKV bias (qwen2),
-attention-logit softcap (gemma2), sliding window (starcoder2) and
-local/global alternation (gemma2, chosen per block by the caller).
+Covers every variant: grouped KV heads, RoPE, QKV bias (qwen2),
+attention-logit softcap (gemma2), sliding window (mixtral, starcoder2),
+local/global alternation (gemma2, chosen per block by the caller) and
+non-causal and cross attention (the seamless encoder-decoder: K and V
+from the encoder's output, S_q and S_k apart, no RoPE).
 
 The training path is the reference's online-softmax (flash) algorithm in
 plain PyTorch: a loop over query chunks x kv chunks keeps the working
@@ -149,26 +151,33 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 def attend_train(params, x, cfg, *, causal=True, window=None,
-                 positions=None):
-    """Full self-attention sub-layer for training.
+                 kv_x: Optional[torch.Tensor] = None, positions=None):
+    """Full attention sub-layer for training.
 
-    x: (B, S, d).  Returns (out (B, S, d), (k, v) of this segment).
-    Query head h reads KV head h // G (the reference's kv-major order).
+    x: (B, S, d).  kv_x: the source of K and V (cross attention, no
+    RoPE); x itself when None (self-attention, causal or not, with
+    RoPE).  Returns (out (B, S, d), (k, v) of this segment).  Query
+    head h reads KV head h // G (the reference's kv-major order).
     """
     b, s, _ = x.shape
+    cross = kv_x is not None
+    kv_x = x if kv_x is None else kv_x
+    sk = kv_x.shape[1]
     hd, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv
     g = cfg.q_per_kv
     cd = cfg.cdtype
 
     q = dense(params["wq"], x, cd).reshape(b, s, kvh, g, hd)
-    k = dense(params["wk"], x, cd).reshape(b, s, kvh, hd)
-    v = dense(params["wv"], x, cd).reshape(b, s, kvh, hd)
+    k = dense(params["wk"], kv_x, cd).reshape(b, sk, kvh, hd)
+    v = dense(params["wv"], kv_x, cd).reshape(b, sk, kvh, hd)
 
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    q = rope(q.reshape(b, s, kvh * g, hd), positions[None],
-             cfg.rope_theta).reshape(b, s, kvh, g, hd)
-    k = rope(k, torch.arange(s, device=x.device)[None], cfg.rope_theta)
+    if not cross:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        q = rope(q.reshape(b, s, kvh * g, hd), positions[None],
+                 cfg.rope_theta).reshape(b, s, kvh, g, hd)
+        k = rope(k, torch.arange(sk, device=x.device)[None],
+                 cfg.rope_theta)
 
     out = flash_attention(
         q, k, v, causal=causal, window=window, cap=cfg.attn_softcap,

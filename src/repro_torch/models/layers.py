@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["Params", "rmsnorm_init", "rmsnorm", "layernorm_init",
+__all__ = ["Params", "param", "rmsnorm_init", "rmsnorm", "layernorm_init",
            "layernorm", "dense_init", "dense", "embedding_init", "embed",
            "unembed", "rope", "softcap"]
 
@@ -34,7 +34,7 @@ class Params(nn.Module):
             or name in self._modules
 
 
-def _param(shape, dtype, device, gen: Optional[torch.Generator],
+def param(shape, dtype, device, gen: Optional[torch.Generator],
            fill: Optional[float] = None, scale: float = 1.0):
     """One parameter: `fill` everywhere, or N(0, 1) * scale drawn in
     float32 from `gen`, or (neither) uninitialised memory."""
@@ -52,7 +52,7 @@ def _param(shape, dtype, device, gen: Optional[torch.Generator],
 
 def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> Params:
     p = Params()
-    p.scale = _param((d,), dtype, device, None, fill=0.0)  # (1 + scale)
+    p.scale = param((d,), dtype, device, None, fill=0.0)  # (1 + scale)
     return p
 
 
@@ -67,8 +67,8 @@ def rmsnorm(p, x, eps: float = 1e-6):
 
 def layernorm_init(d: int, dtype=torch.float32, device=None) -> Params:
     p = Params()
-    p.scale = _param((d,), dtype, device, None, fill=1.0)
-    p.bias = _param((d,), dtype, device, None, fill=0.0)
+    p.scale = param((d,), dtype, device, None, fill=1.0)
+    p.bias = param((d,), dtype, device, None, fill=0.0)
     return p
 
 
@@ -89,9 +89,9 @@ def dense_init(gen, d_in: int, d_out: int, bias: bool = False,
     if scale is None:
         scale = d_in ** -0.5
     p = Params()
-    p.w = _param((d_in, d_out), dtype, device, gen, scale=scale)
+    p.w = param((d_in, d_out), dtype, device, gen, scale=scale)
     if bias:
-        p.b = _param((d_out,), dtype, device, None, fill=0.0)
+        p.b = param((d_out,), dtype, device, None, fill=0.0)
     return p
 
 
@@ -113,7 +113,7 @@ def embedding_init(gen, vocab: int, d: int, dtype=torch.float32,
                    device=None) -> Params:
     """`vocab` = padded table rows."""
     p = Params()
-    p.table = _param((vocab, d), dtype, device, gen, scale=d ** -0.5)
+    p.table = param((vocab, d), dtype, device, gen, scale=d ** -0.5)
     return p
 
 

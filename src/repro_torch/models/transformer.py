@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly for the dense families.
+"""Decoder-only LM assembly for every decoder family.
 
 The reference stacks each group's parameters on a leading (n_groups,)
 axis and runs the stack with `lax.scan`.  The port keeps one module per
@@ -8,20 +8,29 @@ The functions `init_lm_params`, `lm_backbone`, `lm_logits`,
 `lm_forward`, `chunked_ce`, `lm_loss`, `init_cache`, `lm_decode_step`
 and `lm_prefill` keep the reference's names and arguments, with the
 `LM` module in place of the parameter tree.  The decode cache follows
-the module: `init_cache` returns one `KVCache` per layer, in layer
-order, where the reference stacks each group's caches on a leading
-(n_groups,) axis under "cache_<j>" (layer g * len(group) + j is
-`cache_<j>[g]`; `models/convert.py` carries caches across).
+the module: `init_cache` returns one cache per layer, in layer order,
+where the reference stacks each group's caches on a leading (n_groups,)
+axis under "cache_<j>" (layer g * len(group) + j is `cache_<j>[g]`;
+`models/convert.py` carries caches across).
 
-Block kinds: "attn" (GQA attention + MLP, every dense variant: QKV bias,
-softcap, local/global alternation, sandwich norms, the embedding scale,
-layernorm, GELU and the non-gated MLP, sliding window).  The kinds
-"moe", "ssm", "mlstm", "slstm", "shared" and the "encdec" family raise
-`NotImplementedError`; they wait for the other model families (ROADMAP.md
-queue 1).
+Block kinds:
+  attn    GQA attention (RoPE, QKV bias, softcap, sliding window,
+          local/global alternation, sandwich norms) + MLP
+  moe     attention + mixture-of-experts FFN (`models/moe.py`)
+  ssm     Mamba2 (SSD) block (`models/ssm.py`)
+  mlstm   xLSTM matrix-memory block (`models/xlstm.py`)
+  slstm   xLSTM scalar-memory block
+  shared  zamba2's shared attention + MLP block, fed concat(x, the
+          embedding output).  Its one weight set is `LM.shared`; its
+          place in each group's `blocks` is a module without
+          parameters, so the weights are stored, stepped and carried
+          once and their gradient sums over every invocation.  Each
+          invocation keeps its own KV cache.
+The "encdec" family is `models/encdec.py`.
 
-`cfg.remat` checkpoints each group (one layer, or gemma2's local/global
-pair) with `torch.utils.checkpoint`, the reference's `jax.checkpoint`
+`cfg.remat` checkpoints each group (one layer, gemma2's local/global
+pair, xLSTM's mLSTM run with its sLSTM, zamba2's SSM run with the shared
+block) with `torch.utils.checkpoint`, the reference's `jax.checkpoint`
 with the "nothing" policy; "everything" runs without it and "dots" has
 no counterpart.  `cfg.scan_layers` and `cfg.outer_scan` change only how
 XLA compiles the stack, so the port ignores them: the numerics are the
@@ -44,13 +53,20 @@ from repro_torch.models.layers import (Params, dense, dense_init, embed,
                                        layernorm_init, rmsnorm,
                                        rmsnorm_init, softcap, unembed)
 from repro_torch.models.mlp import mlp, mlp_init
+from repro_torch.models.moe import moe, moe_init
+from repro_torch.models.ssm import (ssm_cache_init, ssm_decode_step,
+                                    ssm_forward, ssm_init)
+from repro_torch.models.xlstm import (mlstm_cache_init, mlstm_decode_step,
+                                      mlstm_forward, mlstm_init,
+                                      slstm_cache_init, slstm_decode_step,
+                                      slstm_forward, slstm_init)
 
 __all__ = ["BlockDef", "block_layout", "LM", "init_lm_params",
            "lm_backbone", "lm_logits", "lm_forward", "chunked_ce",
            "lm_loss", "init_cache", "lm_decode_step", "lm_prefill"]
 
-_LATER = ("is not ported yet: the port has the dense decoder only "
-          "(ROADMAP.md queue 1: the other model families)")
+_LATER = ("is not ported yet (ROADMAP.md queue 1: multi-device and XLA "
+          "tooling)")
 
 
 # ------------------------------------------------------------- layouts --
@@ -90,34 +106,58 @@ def _norm_fns(cfg):
 
 # ---------------------------------------------------------------- init --
 class Block(Params):
-    """One "attn" block: pre-norm attention and MLP, gemma2's sandwich
-    norms when the config alternates local and global layers."""
+    """One block of kind `bd.kind`.  A "shared" block holds no
+    parameters: it marks where `LM.shared` is applied."""
 
     def __init__(self, gen, bd: BlockDef, cfg: ModelConfig, device=None):
         super().__init__()
-        if bd.kind != "attn":
-            raise NotImplementedError(f"block kind {bd.kind!r} {_LATER}")
         self.bd = bd
+        if bd.kind == "shared":
+            return
         ninit, _ = _norm_fns(cfg)
         d, pd = cfg.d_model, cfg.pdtype
         self.ln1 = ninit(d, pd, device)
-        self.attn = attention_init(gen, cfg, device=device)
-        self.ln2 = ninit(d, pd, device)
-        if cfg.local_global_period:  # gemma2 sandwich norms
-            self.post_ln1 = ninit(d, pd, device)
-            self.post_ln2 = ninit(d, pd, device)
-        self.mlp = mlp_init(gen, d, cfg.d_ff, pd, cfg.mlp_gated,
-                            device=device)
+        if bd.kind in ("attn", "moe"):
+            self.attn = attention_init(gen, cfg, device=device)
+            self.ln2 = ninit(d, pd, device)
+            if cfg.local_global_period:  # gemma2 sandwich norms
+                self.post_ln1 = ninit(d, pd, device)
+                self.post_ln2 = ninit(d, pd, device)
+            if bd.kind == "moe":
+                self.moe = moe_init(gen, cfg, device=device)
+            else:
+                self.mlp = mlp_init(gen, d, cfg.d_ff, pd, cfg.mlp_gated,
+                                    device=device)
+        elif bd.kind == "ssm":
+            self.ssm = ssm_init(gen, cfg, device=device)
+        elif bd.kind == "mlstm":
+            self.mlstm = mlstm_init(gen, cfg, device=device)
+        elif bd.kind == "slstm":
+            self.slstm = slstm_init(gen, cfg, device=device)
+        else:
+            raise ValueError(bd.kind)
+
+
+def _shared_init(gen, cfg: ModelConfig, device=None) -> Params:
+    """zamba2's shared block: concat(x, emb0) -> proj -> attn + mlp."""
+    ninit, _ = _norm_fns(cfg)
+    d, pd = cfg.d_model, cfg.pdtype
+    p = Params()
+    p.ln_in = ninit(2 * d, pd, device)
+    p.win = dense_init(gen, 2 * d, d, False, pd, device=device)
+    p.attn = attention_init(gen, cfg, device=device)
+    p.ln2 = ninit(d, pd, device)
+    p.mlp = mlp_init(gen, d, cfg.d_ff, pd, device=device)
+    return p
 
 
 class LM(Params):
     """The decoder LM's parameters: `embed`, `final_norm`, `unembed`
-    (untied configs only) and `blocks`, one per layer."""
+    (untied configs only), `blocks` (one per layer) and `shared` (the
+    hybrid family's shared block, once)."""
 
     def __init__(self, cfg: ModelConfig, gen=None, device=None):
         super().__init__()
-        if cfg.family == "encdec":
-            raise NotImplementedError(f"family 'encdec' {_LATER}")
         grp, n_groups = block_layout(cfg)
         ninit, _ = _norm_fns(cfg)
         d, pd = cfg.d_model, cfg.pdtype
@@ -130,6 +170,8 @@ class LM(Params):
         self.blocks = nn.ModuleList(
             Block(gen, grp[j], cfg, device)
             for _ in range(n_groups) for j in range(len(grp)))
+        if any(bd.kind == "shared" for bd in grp):
+            self.shared = _shared_init(gen, cfg, device)
 
     def forward(self, tokens):
         return lm_forward(self, tokens, self.cfg)
@@ -145,20 +187,53 @@ def init_lm_params(seed: int, cfg: ModelConfig, device=None) -> LM:
 
 
 # ------------------------------------------------------------- forward --
-def _apply_block(bp, bd: BlockDef, x, cfg):
-    """Training-path block application. x (B, S, d)."""
+def _attn_mlp(bp, bd: BlockDef, x, cfg, attend):
+    """The "attn" / "moe" block around `attend(h)`, the attention
+    sub-layer of the training or the decode path."""
     _, norm = _norm_fns(cfg)
     post = cfg.local_global_period > 0
     h = norm(bp["ln1"], x, cfg.norm_eps)
-    h, _ = attend_train(bp["attn"], h, cfg, causal=True, window=bd.window)
+    h = attend(h)
     if post:
         h = norm(bp["post_ln1"], h, cfg.norm_eps)
     x = x + h
     h = norm(bp["ln2"], x, cfg.norm_eps)
-    h = mlp(bp["mlp"], h, cfg.cdtype, getattr(cfg, "mlp_act", "silu"))
+    if bd.kind == "moe":
+        h, aux = moe(bp["moe"], h, cfg)
+    else:
+        h, aux = mlp(bp["mlp"], h, cfg.cdtype,
+                     getattr(cfg, "mlp_act", "silu")), {}
     if post:
         h = norm(bp["post_ln2"], h, cfg.norm_eps)
-    return x + h
+    return x + h, aux
+
+
+def _shared_block(sp, x, emb0, cfg, attend):
+    """zamba2's shared block around `attend(h)`."""
+    _, norm = _norm_fns(cfg)
+    h = torch.cat([x, emb0], dim=-1)
+    h = norm(sp["ln_in"], h, cfg.norm_eps)
+    h = dense(sp["win"], h, cfg.cdtype)
+    x = x + attend(h)
+    h = norm(sp["ln2"], x, cfg.norm_eps)
+    return x + mlp(sp["mlp"], h, cfg.cdtype)
+
+
+_RECURRENT = {"ssm": ssm_forward, "mlstm": mlstm_forward,
+              "slstm": slstm_forward}
+
+
+def _apply_block(bp, bd: BlockDef, x, cfg, shared=None, emb0=None):
+    """Training-path block application.  x (B, S, d) -> (x, aux)."""
+    if bd.kind in ("attn", "moe"):
+        return _attn_mlp(bp, bd, x, cfg, lambda h: attend_train(
+            bp["attn"], h, cfg, causal=True, window=bd.window)[0])
+    if bd.kind == "shared":
+        return _shared_block(shared, x, emb0, cfg, lambda h: attend_train(
+            shared["attn"], h, cfg, causal=True)[0]), {}
+    _, norm = _norm_fns(cfg)
+    h = norm(bp["ln1"], x, cfg.norm_eps)
+    return x + _RECURRENT[bd.kind](bp[bd.kind], h, cfg), {}
 
 
 def _embed(params: LM, tokens, cfg: ModelConfig):
@@ -171,11 +246,17 @@ def _embed(params: LM, tokens, cfg: ModelConfig):
     return x
 
 
-def _group_body(x, blocks, cfg):
+def _group_body(x, blocks, cfg, shared, emb0):
+    """One group: (x, its MoE aux, load_balance + 1e-3 * router_z per
+    MoE block)."""
+    aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
     x = x.to(cfg.cdtype)  # keep the remat-saved carry in bf16
     for bp in blocks:
-        x = _apply_block(bp, bp.bd, x, cfg)
-    return x
+        x, aux = _apply_block(bp, bp.bd, x, cfg, shared, emb0)
+        if aux:
+            aux_acc = aux_acc + aux["load_balance"] \
+                + 1e-3 * aux["router_z"]
+    return x, aux_acc
 
 
 def lm_backbone(params: LM, tokens, cfg: ModelConfig):
@@ -183,23 +264,25 @@ def lm_backbone(params: LM, tokens, cfg: ModelConfig):
     grp, n_groups = block_layout(cfg)
     _, norm = _norm_fns(cfg)
     x = _embed(params, tokens, cfg)
+    emb0 = x
+    shared = params.shared if "shared" in params else None
     remat = cfg.remat and torch.is_grad_enabled()
     if remat and cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' has no counterpart in the port "
-            "(ROADMAP.md queue 1: multi-device and XLA tooling)")
+        raise NotImplementedError(f"remat_policy='dots' {_LATER}")
     remat = remat and cfg.remat_policy == "nothing"
     blocks = params["blocks"]
     per = len(grp)
+    auxs = []
     for g in range(n_groups):
         group = list(blocks[g * per:(g + 1) * per])
         if remat:
-            x = checkpoint(_group_body, x, group, cfg, use_reentrant=False)
+            x, aux = checkpoint(_group_body, x, group, cfg, shared, emb0,
+                                use_reentrant=False)
         else:
-            x = _group_body(x, group, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux = _group_body(x, group, cfg, shared, emb0)
+        auxs.append(aux)
     x = norm(params["final_norm"], x, cfg.norm_eps)
-    return x, aux
+    return x, torch.stack(auxs).sum()
 
 
 def lm_logits(params: LM, x, cfg: ModelConfig):
@@ -263,60 +346,71 @@ def lm_loss(params: LM, batch, cfg: ModelConfig):
 
 # -------------------------------------------------------------- serving
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               dtype=torch.bfloat16, device=None) -> List[KVCache]:
-    """One zeroed `KVCache` per layer, (batch, S, KV, D) each, on
-    `device` (the card unless the caller names another).  A windowed
-    block keeps S = min(max_seq, window)."""
+               dtype=torch.bfloat16, device=None) -> list:
+    """One zeroed cache per layer, in layer order, on `device` (the card
+    unless the caller names another).  Attention blocks ("attn", "moe"
+    and each invocation of "shared") get a `KVCache` of (batch, S, KV,
+    D) in `dtype`, S = min(max_seq, window) for a windowed block; the
+    recurrent blocks get their float32 state whatever `dtype` is:
+    `SSMCache`, `MLSTMCache` (m at -1e30), `SLSTMCache` (n at 1e-6, m at
+    -1e30)."""
     from repro_torch.engine.engine import resolve_device
-    if cfg.family == "encdec":
-        raise NotImplementedError(f"family 'encdec' {_LATER}")
     dev = resolve_device(device)
     grp, n_groups = block_layout(cfg)
-    caches = []
-    for _ in range(n_groups):
-        for bd in grp:
-            if bd.kind != "attn":
-                raise NotImplementedError(
-                    f"block kind {bd.kind!r} {_LATER}")
-            s = min(max_seq, bd.window) if bd.window else max_seq
-            shape = (batch, s, cfg.n_kv, cfg.head_dim)
-            caches.append(KVCache(
-                k=torch.zeros(shape, dtype=dtype, device=dev),
-                v=torch.zeros(shape, dtype=dtype, device=dev)))
-    return caches
+    recurrent = {"ssm": ssm_cache_init, "mlstm": mlstm_cache_init,
+                 "slstm": slstm_cache_init}
+
+    def one(bd: BlockDef):
+        if bd.kind in recurrent:
+            return recurrent[bd.kind](cfg, batch, dtype=torch.float32,
+                                      device=dev)
+        s = min(max_seq, bd.window) if bd.window else max_seq
+        shape = (batch, s, cfg.n_kv, cfg.head_dim)
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                       v=torch.zeros(shape, dtype=dtype, device=dev))
+
+    return [one(bd) for _ in range(n_groups) for bd in grp]
 
 
-def _decode_block(bp, bd: BlockDef, x, cache: KVCache, pos, cfg):
-    """Decode-path block application. x (B, 1, d)."""
+_RECURRENT_STEP = {"ssm": ssm_decode_step, "mlstm": mlstm_decode_step,
+                   "slstm": slstm_decode_step}
+
+
+def _decode_block(bp, bd: BlockDef, x, cache, pos, cfg, shared=None,
+                  emb0=None):
+    """Decode-path block application.  x (B, 1, d) -> (x, cache), the
+    cache written in place."""
+    if bd.kind in ("attn", "moe"):
+        ring = bd.window is not None and cache.k.shape[1] == bd.window
+        x, _ = _attn_mlp(bp, bd, x, cfg, lambda h: decode_attention(
+            bp["attn"], h, cache, pos, cfg, window=bd.window,
+            ring=ring)[0])
+        return x, cache
+    if bd.kind == "shared":
+        return _shared_block(shared, x, emb0, cfg, lambda h:
+                             decode_attention(shared["attn"], h, cache,
+                                              pos, cfg)[0]), cache
     _, norm = _norm_fns(cfg)
-    post = cfg.local_global_period > 0
-    ring = bd.window is not None and cache.k.shape[1] == bd.window
     h = norm(bp["ln1"], x, cfg.norm_eps)
-    h, cache = decode_attention(bp["attn"], h, cache, pos, cfg,
-                                window=bd.window, ring=ring)
-    if post:
-        h = norm(bp["post_ln1"], h, cfg.norm_eps)
-    x = x + h
-    h = norm(bp["ln2"], x, cfg.norm_eps)
-    h = mlp(bp["mlp"], h, cfg.cdtype, getattr(cfg, "mlp_act", "silu"))
-    if post:
-        h = norm(bp["post_ln2"], h, cfg.norm_eps)
+    h, cache = _RECURRENT_STEP[bd.kind](bp[bd.kind], h, cache, cfg)
     return x + h, cache
 
 
-def lm_decode_step(params: LM, token, pos, caches: List[KVCache],
-                   cfg: ModelConfig):
+def lm_decode_step(params: LM, token, pos, caches: list, cfg: ModelConfig):
     """One decode step.  token (B,) int, pos a Python int or a 0-d
-    integer tensor.  Writes each layer's new K and V into `caches` in
-    place; returns (logits (B, vocab) float32, caches)."""
+    integer tensor.  Writes every layer's cache in place; returns
+    (logits (B, vocab) float32, caches)."""
     _, norm = _norm_fns(cfg)
     blocks = params["blocks"]
     if len(caches) != len(blocks):
         raise ValueError(f"{len(caches)} caches for {len(blocks)} layers")
     x = _embed(params, token[:, None], cfg)  # (B, 1, d)
+    emb0 = x
+    shared = params.shared if "shared" in params else None
     pos = _as_pos(pos, x.device)  # one fill, not one per layer
     for i, bp in enumerate(blocks):
-        x, caches[i] = _decode_block(bp, bp.bd, x, caches[i], pos, cfg)
+        x, caches[i] = _decode_block(bp, bp.bd, x, caches[i], pos, cfg,
+                                     shared, emb0)
     x = norm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, x[:, 0], cfg), caches
 

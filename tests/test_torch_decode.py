@@ -22,6 +22,7 @@ import torch
 
 from repro.configs.registry import get_config as jget
 from repro.models import init_cache as jinit_cache
+from repro.models import init_encdec_cache as jinit_encdec_cache
 from repro.models import init_lm_params as jinit
 from repro.models import lm_decode_step as jdecode
 from repro.models import lm_prefill as jprefill
@@ -29,7 +30,8 @@ from repro.models.attention import KVCache as JKV
 from repro.models.attention import attention_init as jattn_init
 from repro.models.attention import decode_attention as jdecode_attn
 from repro_torch.configs import get_config
-from repro_torch.models import (KVCache, init_cache, init_lm_params,
+from repro_torch.models import (KVCache, encdec_cache_to_numpy, init_cache,
+                                init_encdec_cache, init_lm_params,
                                 lm_cache_from_numpy, lm_cache_to_numpy,
                                 lm_decode_step, lm_forward,
                                 lm_params_from_numpy, lm_prefill)
@@ -193,9 +195,35 @@ def test_init_cache_matches_reference(arch):
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm-350m",
                                   "zamba2-2.7b", "seamless-m4t-medium"])
 def test_non_dense_kinds_raise(arch):
-    with pytest.raises(NotImplementedError,
-                       match="queue 1: the other model families"):
-        init_cache(get_config(arch).reduced(), 1, 8, device="cpu")
+    """Each other family's cache (the name is from when it raised) has
+    the reference's tree, leaf shapes and fills through the converter:
+    KV caches in the given dtype (one per shared-block invocation), the
+    recurrent states in float32 whatever the dtype, the encoder-decoder's
+    self and cross caches."""
+    jc, tc = jget(arch).reduced(), get_config(arch).reduced()
+    if tc.family == "encdec":
+        ref = jinit_encdec_cache(jc, 3, 20, 16)
+        tree = encdec_cache_to_numpy(
+            init_encdec_cache(tc, 3, 20, 16, device="cpu"), tc)
+    else:
+        ref = jinit_cache(jc, 3, 100)
+        caches = init_cache(tc, 3, 100, device="cpu")
+        assert len({id(a) for c in caches for a in c}) \
+            == sum(len(c) for c in caches)  # distinct buffers
+        tree = lm_cache_to_numpy(caches, tc)
+        back = lm_cache_from_numpy(jax.tree_util.tree_map(np.asarray, ref),
+                                   tc, device="cpu")
+        assert [[(a.shape, a.dtype) for a in c] for c in back] \
+            == [[(a.shape, a.dtype) for a in c] for c in caches]
+    assert sorted(tree) == sorted(ref)
+    for key, c in ref.items():
+        assert tree[key]._fields == c._fields, key
+        for a, b in zip(tree[key], c):
+            assert a.shape == b.shape, key
+            # bfloat16 comes back as float32; the fills are equal
+            np.testing.assert_array_equal(a, np.asarray(b, np.float32))
+            if b.dtype != jnp.bfloat16:
+                assert a.dtype == b.dtype, key
 
 
 # -------------------------------------------------------- lm_decode_step

@@ -18,6 +18,7 @@ import torch
 
 from repro.configs import registry as jregistry
 from repro.configs.registry import get_config as jget
+from repro.models import init_encdec_params as jinit_encdec
 from repro.models import init_lm_params as jinit
 from repro.models import lm_loss as jloss
 from repro.models.attention import flash_attention as jflash
@@ -25,7 +26,8 @@ from repro.models.layers import rope as jrope
 from repro.models.layers import unembed as junembed
 from repro.models.common import param_count as jparam_count
 from repro_torch.configs import get_config, registry
-from repro_torch.models import (LM, block_layout, init_lm_params,
+from repro_torch.models import (block_layout, encdec_params_to_numpy,
+                                init_encdec_params, init_lm_params,
                                 lm_params_from_numpy, lm_params_to_numpy,
                                 lm_loss, param_count)
 from repro_torch.models.attention import flash_attention
@@ -212,9 +214,25 @@ def test_layout_param_count_and_round_trip():
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm-350m",
                                   "zamba2-2.7b", "seamless-m4t-medium"])
 def test_other_families_not_ported(arch):
-    with pytest.raises(NotImplementedError,
-                       match="queue 1: the other model families"):
-        LM(get_config(arch).reduced(), device="cpu")
+    """Each of the other families builds (the name is from when they
+    raised), and its parameter tree has the reference's leaf names,
+    shapes and dtypes: stacked MoE and recurrent leaves, zamba2's
+    shared block once, the encoder-decoder's (L, ...) stacks."""
+    jc, tc = jget(arch).reduced(), get_config(arch).reduced()
+    if tc.family == "encdec":
+        want = jax.eval_shape(lambda: jinit_encdec(jax.random.PRNGKey(0),
+                                                   jc))
+        got = encdec_params_to_numpy(init_encdec_params(0, tc,
+                                                        device="cpu"))
+    else:
+        want = jax.eval_shape(lambda: jinit(jax.random.PRNGKey(0), jc))
+        got = lm_params_to_numpy(init_lm_params(0, tc, device="cpu"))
+    assert jax.tree_util.tree_structure(got) \
+        == jax.tree_util.tree_structure(want)
+    for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(want)[0],
+                            jax.tree_util.tree_leaves(got)):
+        assert (b.shape, b.dtype) == (a.shape, a.dtype), \
+            jax.tree_util.keystr(path)
 
 
 def test_init_defaults_to_the_card():
