@@ -150,11 +150,37 @@ CUDA toolkit.  The phases, each of which raises on failure:
                and seamless (`encdec_decode_step` against
                `decode_train`).
 
+  11. distributed — the time-sharded TEDA scan across shards, which
+               launches none of the three TEDA kernels (checked by the
+               launch counts): (a) `distributed_teda` over
+               [cuda:0] * 4 (and cuda:0-3 with four cards) on one
+               (2^24, 4) float32 stream from the seed with bursts, m =
+               3, against the single-device `teda_scan` on the card
+               (rtol 5e-4 / atol 1e-5, flags equal outside the 1e-4 band,
+               final k exact), the four shards' final states bit-equal,
+               3 counted gathers of 72 B (ring model); ms per pass by
+               CUDA events beside the 37 B-per-row byte bound and
+               `teda_scan`'s ms, peak memory; the first 2^20 rows
+               against the port's CPU form; (b) `distributed_teda_group`
+               over NCCL with min(cards, 4) ranks, one child process per
+               card, each rank bit-equal to the `DeviceAxis` form at the
+               same D; (c) the GPipe stage loop: the JAX package's test's
+               four affine stages over 6 microbatches, exact, and
+               llama3.2-1b's 16 blocks at full width (random weights
+               from the seed) as 4 stages of 4 over 8 microbatches of
+               (1, 128) hidden states, bit-equal to the blocks applied
+               microbatch by microbatch, in 11 ticks; (d)
+               `teda_dryrun.run` for the 256- and 512-device meshes at T
+               = 2^24, N = 4 (3 gathers, 360 B and 744 B), the roofline
+               terms, and the card's peak memory for one shard's block
+               of the single mesh.
+
 The last three lines are the kernels' JSON record (`launches` from
 phase 5, `launches_serve` from phase 6, `launches_fleet` from phase 7's
 gateway runs, `launches_lm` from phase 9 (b), `launches_families` from
-phase 10 (b)), the card's name and power limit as nvidia-smi prints
-them, and {"ok": true, "device": ...}.
+phase 10 (b), `launches_distributed` from phase 11), the card's name
+and power limit as nvidia-smi prints them, and {"ok": true, "device":
+...}.
 It exits non-zero without a result when CUDA is unavailable or the
 package is not beside it.
 
@@ -2799,6 +2825,341 @@ def phase_families(seed, smi):
     return launches
 
 
+# ------------------------------------------------------- distributed
+# phase 11: (a) one stream over 4 shards, (b) the process-group form,
+# (c) the GPipe stage loop, (d) the TEDA dry run
+DIST_T, DIST_N, DIST_D, DIST_M = 1 << 24, 4, 4, 3.0
+DIST_CPU_T = 1 << 20  # the rows (a) also scans on the CPU
+DIST_BURSTS = ((700_000, 20), (4_194_300, 40), (9_000_000, 25),
+               (16_000_000, 30))  # (first row, rows) shifted by +6
+DIST_ROW_BYTES = DIST_N * 4 + 5 * 4 + 1  # x; five f32 fields, the flag
+DIST_REPS = 2
+PIPE_ARCH, PIPE_STAGES, PIPE_MB, PIPE_SEQ = "llama3.2-1b", 4, 8, 128
+GROUP_TIMEOUT_S = 300
+
+
+def _dist_stream(seed, dev, t_len=DIST_T):
+    """(T, N) float32 N(0, 1) from a generator on `dev` seeded with
+    `seed` (the same values on any card of one model), with bursts."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((t_len, DIST_N), generator=gen, device=dev)
+    for row, n in DIST_BURSTS:
+        if row + n <= t_len:
+            x[row:row + n] += 6.0
+    return x
+
+
+def _dist_same(tag, out, fin, want, wfin):
+    """`out` / `fin` against `want` / `wfin`: fields within rtol 5e-4 /
+    atol 1e-5, flags equal outside the 1e-4 band, k exact; returns the
+    fields' largest difference and the flags counted."""
+    err = 0.0
+    for f in ("ecc", "typ", "zeta", "threshold", "k"):
+        a, b = getattr(out, f).double().cpu(), getattr(want, f).double().cpu()
+        diff = (a - b).abs()
+        check(bool((diff <= ATOL + RTOL * b.abs()).all()),
+              f"dist {tag} {f}: beyond rtol {RTOL} / atol {ATOL} (max abs "
+              f"err {float(diff.max())})")
+        err = max(err, float(diff.max()))
+    check(torch.equal(out.k.cpu(), want.k.cpu()), f"dist {tag}: k differs")
+    _, bad = _band_mismatch(want.ecc.double().cpu(), DIST_M,
+                            want.k.double().cpu(), out.outlier.cpu(),
+                            want.outlier.cpu())
+    check(bad == 0, f"dist {tag}: {bad} flags differ outside the band")
+    check(torch.equal(fin.k.cpu(), wfin.k.cpu())
+          and float(fin.k) == float(out.k.shape[0]),
+          f"dist {tag}: final k {float(fin.k)} for {out.k.shape[0]} rows")
+    for f in ("mean", "var"):
+        a, b = getattr(fin, f).double().cpu(), getattr(wfin, f).double().cpu()
+        check(bool(((a - b).abs() <= ATOL + RTOL * b.abs()).all()),
+              f"dist {tag}: final {f} {a.tolist()} against {b.tolist()}")
+    return err, int(out.outlier.sum())
+
+
+def _bits(v):
+    """A tensor as words of its width (float32, bfloat16), to compare
+    bit for bit; other dtypes as they are."""
+    if v.dtype == torch.float32:
+        return v.view(torch.int32)
+    if v.dtype == torch.bfloat16:
+        return v.contiguous().view(torch.int16)
+    return v
+
+
+def _finals_bitequal(tag, finals):
+    words = [[_bits(v.cpu()) for v in fin] for fin in finals]
+    check(all(all(torch.equal(a, b) for a, b in zip(words[0], w))
+              for w in words), f"dist {tag}: the shards' finals differ")
+
+
+def _dist_stream_phase(seed, smi, dev):
+    """(a): `distributed_teda` over 4 shards on one card (and on four
+    cards where present) against the single-device `teda_scan`, and
+    its first 2^20 rows against the CPU form."""
+    from repro_torch.core import teda_scan
+    from repro_torch.core.distributed import make_distributed_teda
+    from repro_torch.launch.cost_analysis import collective_stats
+
+    x = _dist_stream(seed, dev)
+    torch.cuda.synchronize()
+    sfin, sout = teda_scan(x, DIST_M)
+    n_flags = int(sout.outlier.sum())
+    check(n_flags > 0, "dist (a): the bursts raised no flag")
+    # each timed function has just run once: no further warmup
+    scan_ms = cuda_ms(lambda: teda_scan(x, DIST_M), DIST_REPS, warmup=0)
+    cumsum_ms = cuda_ms(lambda: torch.cumsum(x, 0), DIST_REPS, warmup=0)
+    bound = DIST_T * DIST_ROW_BYTES / HBM_BYTES_PER_S * 1e3
+    want_bytes = (DIST_D - 1) / DIST_D * (DIST_D * DIST_N * 4 + 2 * DIST_D * 4)
+    layouts = [("1 card", [dev] * DIST_D)]
+    if torch.cuda.device_count() >= DIST_D:
+        layouts.append((f"{DIST_D} cards", [torch.device("cuda", i)
+                                            for i in range(DIST_D)]))
+    for label, devs in layouts:
+        fn = make_distributed_teda(devs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fin, out = fn(x, DIST_M)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        stats = collective_stats(fn.axis)
+        check(stats == {"all-gather": want_bytes, "total_bytes": want_bytes,
+                        "all-gather_count": 3},
+              f"dist (a) {label}: counted collectives {stats}")
+        err, flags = _dist_same(f"(a) {label}", out, fin, sout, sfin)
+        _finals_bitequal(f"(a) {label}", fn.finals)
+        ms = cuda_ms(lambda: fn(x, DIST_M), DIST_REPS, warmup=0)
+        log(f"[dist] (a) {label}: distributed_teda T = {DIST_T:,} x N = "
+            f"{DIST_N} over {DIST_D} shards: {ms:.3f} ms per pass "
+            f"({DIST_T / ms * 1e3:.6e} samples/s), byte bound "
+            f"{bound:.4f} ms ({DIST_ROW_BYTES} B per row at 3.35 TB/s; "
+            f"{ms / bound:.1f}x), single-device teda_scan {scan_ms:.3f} ms "
+            f"({scan_ms / ms:.2f}x the sharded pass); torch.cumsum over "
+            f"(T, N) alone {cumsum_ms:.3f} ms; peak "
+            f"{peak:,} B on {dev}; gathers {stats['all-gather_count']}, "
+            f"{stats['all-gather']} B (ring model); max abs err against "
+            f"teda_scan {err:.3e}; {flags} flags ({n_flags} single); "
+            f"finals bit-equal over {DIST_D} shards; {smi}")
+    cpu_fn = make_distributed_teda(["cpu"] * DIST_D)
+    cfin, cout = cpu_fn(x[:DIST_CPU_T].cpu(), DIST_M)
+    gfin, gout = make_distributed_teda([dev] * DIST_D)(x[:DIST_CPU_T],
+                                                      DIST_M)
+    err, _ = _dist_same("(a) card vs CPU", gout, gfin, cout, cfin)
+    log(f"[dist] (a) the first {DIST_CPU_T:,} rows over {DIST_D} shards: "
+        f"card = CPU within rtol {RTOL} / atol {ATOL} (max abs err "
+        f"{err:.3e}), flags equal outside the band")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _group_rank(rank, world, port, seed):
+    """One rank of (b): `distributed_teda_group` over NCCL on cuda:rank,
+    bit for bit the `DeviceAxis` form's block at the same D."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import (distributed_teda_group,
+                                              make_distributed_teda)
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        x = _dist_stream(seed, dev)
+        t = DIST_T // world
+        block = x[rank * t:(rank + 1) * t]
+        fin, out = distributed_teda_group(block, DIST_M)
+        ms = cuda_ms(lambda: distributed_teda_group(block, DIST_M),
+                     DIST_REPS, warmup=0)
+        ref = make_distributed_teda([dev] * world)
+        _, rout = ref(x, DIST_M)
+        for f, a, b in zip(out._fields, out, rout):
+            check(torch.equal(_bits(a), _bits(b[rank * t:(rank + 1) * t])),
+                  f"dist (b) rank {rank}: {f} differs from the DeviceAxis "
+                  "form")
+        for a, b in zip(fin, ref.finals[rank]):
+            check(torch.equal(_bits(a), _bits(b)),
+                  f"dist (b) rank {rank}: the final state differs")
+        log(f"[dist] (b) rank {rank} of {world} (nccl, {dev}): "
+            f"distributed_teda_group over {t:,} rows bit-equal to the "
+            f"DeviceAxis form at D = {world}; {ms:.3f} ms per pass")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_group_phase(seed):
+    """(b): min(cards, 4) ranks, one per card, each a child process that
+    imports this script and runs `_group_rank`."""
+    world = min(torch.cuda.device_count(), DIST_D)
+    port = _free_port()
+    code = ("import sys; sys.path[:0] = sys.argv[1:3]; import chip_smoke; "
+            "chip_smoke._group_rank(*map(int, sys.argv[3:]))")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(ROOT), str(ROOT / "src"),
+         str(r), str(world), str(port), str(seed)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=GROUP_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        for ln in text.strip().splitlines()[-40:]:
+            log(f"[dist]   rank {r}| {ln}")
+        check(p.returncode == 0, f"dist (b): rank {r} exited "
+              f"{p.returncode}")
+    log(f"[dist] (b) {world} rank(s) passed in "
+        f"{time.perf_counter() - t0:.1f} s (a one-card machine runs one "
+        "rank: the code path, not the traffic)")
+
+
+def _pipe_blocks(cfg, dev, seed):
+    """`cfg`'s blocks, random N(0, 0.02) weights from a generator on the
+    card (`init_lm_params` draws on the CPU, slow at full width)."""
+    from repro_torch.models.transformer import Block, block_layout
+
+    grp, n_groups = block_layout(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blocks = [Block(None, grp[j], cfg, dev)
+              for _ in range(n_groups) for j in range(len(grp))]
+    with torch.no_grad():
+        for blk in blocks:
+            for p in blk.parameters():
+                p.normal_(0.0, 0.02, generator=gen)
+    return blocks
+
+
+def _dist_pipeline_phase(seed, smi, dev):
+    """(c): the reference test's affine stages, then llama3.2-1b's 16
+    blocks at full width as 4 stages of 4 over 8 microbatches."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cost_analysis import collective_stats
+    from repro_torch.models.transformer import _group_body
+    from repro_torch.sharding.pipeline import make_pipelined
+
+    affine = make_pipelined([dev] * 4, lambda w, x: x * w[0], 4)
+    x = torch.arange(24.0, device=dev).reshape(6, 4)
+    out = affine(torch.tensor([[2.0], [0.5], [3.0], [1.0]]), x)
+    check(torch.equal(out, x * 3.0), "dist (c): the affine pipeline differs")
+
+    cfg = get_config(PIPE_ARCH)
+    blocks = _pipe_blocks(cfg, dev, seed)
+    per = len(blocks) // PIPE_STAGES
+    stages = [blocks[s * per:(s + 1) * per] for s in range(PIPE_STAGES)]
+
+    def stage(blks, h):
+        return _group_body(h, blks, cfg, None, None)[0]
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn((PIPE_MB, 1, PIPE_SEQ, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.cdtype)
+    layouts = [("1 card", [dev] * PIPE_STAGES, stages)]
+    if torch.cuda.device_count() >= PIPE_STAGES:
+        cards = [torch.device("cuda", s) for s in range(PIPE_STAGES)]
+        layouts.append((f"{PIPE_STAGES} cards", cards,
+                        [[copy.deepcopy(b).to(cards[s]) for b in stages[s]]
+                         for s in range(PIPE_STAGES)]))
+    with torch.no_grad():
+        def straight():
+            outs = []
+            for mb in x:
+                for blks in stages:
+                    mb = stage(blks, mb)
+                outs.append(mb)
+            return torch.stack(outs)
+
+        want = straight()
+        seq_ms = cuda_ms(straight, DIST_REPS, warmup=1)
+        for label, devs, params in layouts:
+            run = make_pipelined(devs, stage, PIPE_STAGES)
+            got = run(params, x)
+            stats = collective_stats(run.axis)
+            ticks = stats["collective-permute_count"]
+            check(ticks == PIPE_MB + PIPE_STAGES - 1,
+                  f"dist (c) {label}: {ticks} ticks")
+            check(bool(torch.isfinite(got.float()).all())
+                  and torch.equal(_bits(got), _bits(want)),
+                  f"dist (c) {label}: the pipeline differs from the blocks "
+                  "applied microbatch by microbatch")
+            ms = cuda_ms(lambda: run(params, x), DIST_REPS, warmup=1)
+            log(f"[dist] (c) {label}: {PIPE_ARCH} full width, "
+                f"{len(blocks)} blocks as {PIPE_STAGES} stages over "
+                f"{PIPE_MB} microbatches of (1, {PIPE_SEQ}, {cfg.d_model}) "
+                f"{cfg.cdtype}: bit-equal in {ticks} ticks, {ms:.3f} ms "
+                f"(straight {seq_ms:.3f} ms), {stats['collective-permute']}"
+                f" B handed off; {smi}")
+
+
+def _dist_dryrun_phase(seed, smi, dev):
+    """(d): `teda_dryrun.run` for both meshes at T = 2^24, N = 4, and the
+    card's peak memory for one shard's block of the single mesh."""
+    from repro_torch.core.distributed import shard_scan
+    from repro_torch.launch import teda_dryrun
+    from repro_torch.sharding.collectives import TraceAxis
+
+    for multi, total in ((False, 360.0), (True, 744.0)):
+        r = teda_dryrun.run(multi, DIST_T, DIST_N)
+        c = r["collectives"]
+        check(c == {"all-gather": total, "total_bytes": total,
+                    "all-gather_count": 3},
+              f"dist (d) {r['mesh']}: collectives {c}")
+        log(f"[dist] (d) {r['mesh']} mesh, {r['devices']} devices: "
+            f"t_per_device {r['t_per_device']:,} (the reference's figure), "
+            f"flops {r['flops_per_device']:.6e}, bytes "
+            f"{r['bytes_per_device']:.6e} per device (the port's count), "
+            f"all-gather {c['all-gather']} B in {c['all-gather_count']}, "
+            f"roofline {json.dumps(r['roofline'])}, temp_bytes "
+            f"{r['temp_bytes']}")
+    group = 16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    block = torch.randn((DIST_T // group, DIST_N), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = shard_scan([block], DIST_M, TraceAxis(group))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del res
+    log(f"[dist] (d) one shard's block of the single mesh ({DIST_T // group:,}"
+        f" x {DIST_N}) on the card: max_memory_allocated {peak:,} B, "
+        f"{peak - base:,} B above its inputs; {smi}")
+
+
+def phase_distributed(seed, smi):
+    """Phase 11: the time-sharded TEDA scan, the process-group form, the
+    pipeline and the dry run.  No TEDA kernel may launch.  Returns the
+    kernels' launches (all 0)."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    mods = _kernel_mods()
+    for mod in mods.values():
+        mod.launches = 0
+    _dist_stream_phase(seed, smi, dev)
+    torch.cuda.empty_cache()
+    _dist_group_phase(seed)
+    _dist_pipeline_phase(seed, smi, dev)
+    torch.cuda.empty_cache()
+    _dist_dryrun_phase(seed, smi, dev)
+    torch.cuda.empty_cache()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    check(not any(launches.values()), f"dist: TEDA kernels launched "
+          f"{launches} on the distributed paths")
+    log(f"[dist] no TEDA kernel launched; phase 11 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def profile_window(backend, eng, feed, warmup=2):
     """Where an engine call's time goes: torch.profiler over the
     `process` calls of `feed` but the first `warmup`, which the profiler
@@ -2894,19 +3255,22 @@ def main(argv=None):
     phase_train(args.seed, smi)
     lm = phase_lm(args.seed, smi)
     families = phase_families(args.seed, smi)
+    distributed = phase_distributed(args.seed, smi)
     for name, rec in records.items():
         rec["launches"] = launches[name]
         rec["launches_serve"] = served[name]
         rec["launches_fleet"] = fleet[name]
         rec["launches_lm"] = lm[name]
         rec["launches_families"] = families[name]
+        rec["launches_distributed"] = distributed[name]
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "repro" or m.startswith("repro.")
                   for m in sys.modules), "the JAX package was imported")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_serve", "launches_fleet", "launches_lm",
-            "launches_families", "max_abs_err", "ms",
+            "launches_families", "launches_distributed", "max_abs_err",
+            "ms",
             "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}

@@ -3,7 +3,8 @@ clouds classifier and the training guard."""
 from repro_torch.core.teda import (TedaOutput, TedaState, teda_init,
                                    teda_numpy_loop, teda_step, teda_stream,
                                    teda_threshold)
-from repro_torch.core.scan import linear_recurrence_scan, teda_scan
+from repro_torch.core.scan import (linear_recurrence_scan, teda_scan,
+                                   welford_combine)
 from repro_torch.core.clouds import (CloudState, clouds_init, clouds_run,
                                      clouds_step)
 from repro_torch.core.guard import (GuardConfig, GuardState, GuardVerdict,
@@ -12,7 +13,7 @@ from repro_torch.core.guard import (GuardConfig, GuardState, GuardVerdict,
 
 __all__ = ["TedaOutput", "TedaState", "teda_init", "teda_step",
            "teda_stream", "teda_threshold", "teda_numpy_loop", "teda_scan",
-           "linear_recurrence_scan", "GuardConfig", "GuardState",
-           "GuardVerdict", "StragglerDetector", "apply_guard", "guard_init",
-           "guard_step", "CloudState", "clouds_init", "clouds_run",
-           "clouds_step"]
+           "linear_recurrence_scan", "welford_combine", "GuardConfig",
+           "GuardState", "GuardVerdict", "StragglerDetector", "apply_guard",
+           "guard_init", "guard_step", "CloudState", "clouds_init",
+           "clouds_run", "clouds_step"]

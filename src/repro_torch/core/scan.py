@@ -16,14 +16,15 @@ reference runs this backend outside Pallas too.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core.teda import (TedaOutput, TedaState, teda_init,
                                    teda_threshold)
 
-__all__ = ["teda_scan", "linear_recurrence_scan"]
+__all__ = ["teda_scan", "affine_scan", "linear_recurrence_scan",
+           "WelfordState", "welford_of_block", "welford_combine"]
 
 
 def _shift_down(v: torch.Tensor, d: int, fill: float) -> torch.Tensor:
@@ -33,10 +34,11 @@ def _shift_down(v: torch.Tensor, d: int, fill: float) -> torch.Tensor:
     return torch.cat([pad, v[: v.shape[0] - d]], dim=0)
 
 
-def linear_recurrence_scan(a: torch.Tensor, b: torch.Tensor
-                           ) -> torch.Tensor:
-    """All-prefix solutions of y_k = a_k * y_{k-1} + b_k with y_0 = 0,
-    over axis 0, by doubling: O(T log T) work, O(log T) depth."""
+def affine_scan(a: torch.Tensor, b: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive prefix compositions of the maps y -> a_k * y + b_k over
+    axis 0, by doubling: O(T log T) work, O(log T) depth.  Returns
+    (A, B), where row k's composed map is y -> A_k * y + B_k."""
     d = 1
     while d < a.shape[0]:
         a_sh = _shift_down(a, d, 1.0)
@@ -44,7 +46,14 @@ def linear_recurrence_scan(a: torch.Tensor, b: torch.Tensor
         # the newer map (a, b) applied after the older shifted one
         a, b = a * a_sh, a * b_sh + b
         d *= 2
-    return b
+    return a, b
+
+
+def linear_recurrence_scan(a: torch.Tensor, b: torch.Tensor
+                           ) -> torch.Tensor:
+    """All-prefix solutions of y_k = a_k * y_{k-1} + b_k with y_0 = 0,
+    over axis 0."""
+    return affine_scan(a, b)[1]
 
 
 def teda_scan(x: torch.Tensor, m=3.0,
@@ -120,3 +129,31 @@ def teda_scan(x: torch.Tensor, m=3.0,
                      outlier=outlier, k=k)
     final = TedaState(k=k[-1], mean=mean[-1], var=var[-1])
     return final, out
+
+
+class WelfordState(NamedTuple):
+    """Exact first/second moments of a block: count, mean, M2 (= n*var)."""
+
+    count: torch.Tensor  # (...,)
+    mean: torch.Tensor  # (..., N)
+    m2: torch.Tensor  # (...,)
+
+
+def welford_of_block(x: torch.Tensor) -> WelfordState:
+    """Exact moments of a block x (T, ..., N) (Chan et al. pairwise form)."""
+    mean = x.mean(0)
+    m2 = ((x - mean[None]) ** 2).sum(-1).sum(0)
+    count = torch.full(tuple(x.shape[1:-1]), float(x.shape[0]),
+                       dtype=x.dtype, device=x.device)
+    return WelfordState(count=count, mean=mean, m2=m2)
+
+
+def welford_combine(a: WelfordState, b: WelfordState) -> WelfordState:
+    """Associative merge of two disjoint blocks' exact moments.  A block
+    with count 0 leaves the other unchanged."""
+    n = a.count + b.count
+    safe_n = torch.where(n > 0, n, torch.ones_like(n))
+    delta = b.mean - a.mean
+    mean = a.mean + delta * (b.count / safe_n)[..., None]
+    m2 = a.m2 + b.m2 + (delta ** 2).sum(-1) * a.count * b.count / safe_n
+    return WelfordState(count=n, mean=mean, m2=m2)

@@ -6,8 +6,9 @@ engine step per backend, fills a `SlotPool`, serves a few streams
 through `serve_streams`, migrates a stream in a two-shard `ShardedPool`,
 serves through a two-shard gateway, runs an engine split over two
 devices and a word-length evaluation, trains a reduced LM for two steps,
-saves and restores a checkpoint and runs the data clouds, after which
-neither is in `sys.modules`; and no source file of the port (every
+saves and restores a checkpoint, runs the data clouds, scans one stream
+over two CPU shards, runs a two-stage pipeline and the TEDA dry run,
+after which neither is in `sys.modules`; and no source file of the port (every
 sub-package, the LM and training ones included) names them in an
 import.
 """
@@ -73,6 +74,14 @@ with tempfile.TemporaryDirectory() as d:
         "w"].sum() == 3
 from repro_torch.core import clouds_run
 assert int(clouds_run(torch.zeros(4, 2))[0].n_active) == 1
+from repro_torch.core.distributed import distributed_teda
+fin, out = distributed_teda(np.ones((8, 2), np.float32), 3.0, ["cpu"] * 2)
+assert out.ecc.shape == (8,) and float(fin.k) == 8.0
+from repro_torch.sharding.pipeline import make_pipelined
+piped = make_pipelined(["cpu"] * 2, lambda w, x: x * w, 2)
+assert float(piped(torch.tensor([2.0, 3.0]), torch.ones(3, 2)).sum()) == 36
+from repro_torch.launch.teda_dryrun import run as teda_dryrun
+assert teda_dryrun(False, 1 << 12, 4)["collectives"]["all-gather_count"] == 3
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -94,7 +103,7 @@ def test_no_source_imports_jax_or_reference():
     scanned = {p.relative_to(PORT).parts[0] for p in files
                if PORT in p.parents}
     for sub in ("models", "configs", "optim", "data", "checkpoint", "core",
-                "launch", "engine", "kernels"):
+                "launch", "engine", "kernels", "sharding"):
         assert sub in scanned, sub
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
