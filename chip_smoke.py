@@ -175,12 +175,37 @@ CUDA toolkit.  The phases, each of which raises on failure:
                terms, and the card's peak memory for one shard's block
                of the single mesh.
 
+  12. sharded — the model side of multi-device (DTensor placements by
+               the sharding rules), which launches none of the three
+               TEDA kernels: (a) phase 8 (b)'s training (its schedule,
+               guard and batches) for 8 steps through `train(...,
+               mesh=make_host_mesh())` over a one-rank NCCL group: ms
+               per step, tokens/s and peak memory beside phase 8's, the
+               first 4 losses against phase 8's (rtol 2e-2); (b)
+               llama3.2-1b at full width, the train (8 x 128), prefill
+               (8 x 128) and decode (batch 8, a 256-slot cache) cells
+               on that mesh against the unsharded functions on the same
+               weights and inputs: loss and grad norm rtol 1e-3,
+               parameters rtol 1e-3 / atol 1e-5, logits and caches
+               within 2e-2 (bf16 compute), one call each timed; (c) the
+               production dry run of llama3.2-1b's train_4k,
+               prefill_32k and decode_32k on the 16 x 16 mesh (child
+               processes on the CPU, a fake 256-rank group, meta):
+               per-device flops, bytes, collective bytes and roofline
+               terms reckoned with H100 constants, trace seconds; (d)
+               one device's share of decode_32k allocated on the card
+               under a fake 256-rank group (local shapes real, values
+               meaningless): its argument bytes equal to (c)'s, its
+               peak memory; (e) with two or four cards, the reduced
+               train cell over NCCL ranks on a (2, 1) or (2, 2) mesh
+               against the unsharded step, else "not measured".
+
 The last three lines are the kernels' JSON record (`launches` from
 phase 5, `launches_serve` from phase 6, `launches_fleet` from phase 7's
 gateway runs, `launches_lm` from phase 9 (b), `launches_families` from
-phase 10 (b), `launches_distributed` from phase 11), the card's name
-and power limit as nvidia-smi prints them, and {"ok": true, "device":
-...}.
+phase 10 (b), `launches_distributed` from phase 11, `launches_sharded`
+from phase 12), the card's name and power limit as nvidia-smi prints
+them, and {"ok": true, "device": ...}.
 It exits non-zero without a result when CUDA is unavailable or the
 package is not beside it.
 
@@ -239,6 +264,14 @@ def log(msg):
 
 
 # ---------------------------------------------------------------- timing
+def timed(phase, *args, **kw):
+    """`phase(*args, **kw)`, with its wall seconds logged."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kw)
+    log(f"[time] {phase.__name__} took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def cuda_ms(fn, reps, warmup=2):
     """Mean milliseconds of `fn()` over `reps` runs, by CUDA events."""
     for _ in range(warmup):
@@ -1264,7 +1297,7 @@ def phase_ensemble_stream(seed, smi):
 
 # the serving phase: tenants, history, live, chunk_t, buckets, arrivals
 SERVE_LOADS = {
-    "cuda-q": (16_384, 480, 32, 32, (1024, 4096, 16_384), 2048),
+    "cuda-q": (4096, 480, 32, 32, (256, 1024, 4096), 512),
     "cuda": (4096, 480, 32, 32, (256, 1024, 4096), 512),
     "ensemble": (4096, 480, 32, 32, (256, 1024, 4096), 512),
 }
@@ -1301,29 +1334,31 @@ def _serve(backend, streams, device, **kw):
     mods = {"teda_scan": fk, "teda_q_scan": qk, "ensemble_scan": ek}
     for mod in mods.values():
         mod.launches = 0
+    t0 = time.perf_counter()
     res = serve_streams(streams, **opts)
+    res["total_s"] = time.perf_counter() - t0  # set-up included
     return res, {name: mod.launches for name, mod in mods.items()}
 
 
 def _serve_profiled(backend, streams):
-    """The depth-1 async gateway once more, under torch.profiler (device
-    activity only) and a TickTracer: (result, device microseconds,
-    host microseconds per span name)."""
+    """The depth-1 async gateway on the card, collecting verdicts, under
+    torch.profiler (device activity only) and a TickTracer: (result,
+    kernel launches, device microseconds, host microseconds per span
+    name)."""
     from repro_torch.obs import TickTracer
 
     tracer = TickTracer(capacity=1 << 17)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        res, _ = _serve(backend, streams, "cuda", measure_latency=False,
-                        tracer=tracer)
+        res, used = _serve(backend, streams, "cuda", collect=True,
+                           measure_latency=False, tracer=tracer)
         torch.cuda.synchronize()
-    dev_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                 if str(ev.device_type).endswith("CUDA"))
+    dev_us = sum(us for us, _, _ in _device_rows(prof))
     spans = {}
     for ev in tracer.events():
         if ev["ph"] == "X":
             spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"]
-    return res, dev_us, spans
+    return res, used, dev_us, spans
 
 
 def _pool_probe(backend, capacity, n=512):
@@ -1380,22 +1415,22 @@ def _serve_same(tag, backend, a, b, m_of):
 def phase_serve(seed, smi):
     """The gateway main path, `serve_streams` on the card, per backend:
     the GPU gateway against the port's own CPU gateway on the same
-    streams, the async loop at depth 1 (and for "cuda-q" at depth 4),
-    then a synchronous run for per-call wall times and a profiled run
-    with the pool probe for where the time goes.  Returns each kernel's
+    streams, the async loop at depth 1 under the profiler (with the pool
+    probe: where the time goes) and for "cuda-q" at depth 4, then a
+    synchronous run for per-call wall times.  Returns each kernel's
     launches during its backend's depth-1 run, and each backend's
     depth-1 GPU run (phase 7's single-pool reference)."""
     from repro_torch.launch.serve import _demo_streams
 
     launches, singles = {}, {}
     for backend, (n, hist, live, _, buckets, _) in SERVE_LOADS.items():
+        t_backend = time.perf_counter()
         streams = _demo_streams(n, hist, live, seed=seed)
         m_of = {s[0]: s[3] for s in streams}
         total = n * (hist + live)
         cpu, _ = _serve(backend, streams, "cpu", collect=True,
                         measure_latency=False)
-        gpu, used = _serve(backend, streams, "cuda", collect=True,
-                           measure_latency=False)
+        gpu, used, dev_us, spans = _serve_profiled(backend, streams)
         sched = gpu["_scheduler"]
         calls = int(sched._c_calls.value)
         kname = KERNEL_OF[backend]
@@ -1443,9 +1478,8 @@ def phase_serve(seed, smi):
             f"{np.percentile(walls, 99) * 1e3:.3f} ms over {len(walls)} "
             f"calls, {sync['samples_per_s']:.6e} samples/s; CPU gateway "
             f"{cpu['samples_per_s']:.6e} samples/s (plain versions)")
-        prof, dev_us, spans = _serve_profiled(backend, streams)
         acq_ms, rel_ms = _pool_probe(backend, buckets[-1])
-        wall_us = prof["wall_s"] * 1e6
+        wall_us = gpu["wall_s"] * 1e6
         if dev_us > 0:
             busy = (f"device busy {dev_us / 1e3:.3f} ms = "
                     f"{100.0 * dev_us / wall_us:.2f}% of the wall")
@@ -1454,25 +1488,29 @@ def phase_serve(seed, smi):
         dispatch_s = spans.get("dispatch", 0.0) / 1e6
         retire_s = spans.get("retire", 0.0) / 1e6
         pool_s = n * (acq_ms + rel_ms) / 1e3
-        log(f"[serve] {backend} where the time goes (depth 1 again, "
-            f"profiled): wall {prof['wall_s']:.3f} s, {busy}; host in "
+        log(f"[serve] {backend} where the time goes (the depth-1 run, "
+            f"profiled): wall {gpu['wall_s']:.3f} s, {busy}; host in "
             f"dispatch spans {dispatch_s:.3f} s (the engine call: x and "
             f"vlens upload, enqueue), in retire spans {retire_s:.3f} s "
             f"(the .cpu() fetches); pool probe at {buckets[-1]} slots: "
             f"acquire {acq_ms:.4f} ms, release {rel_ms:.4f} ms per tenant, "
             f"x {n} tenants = {pool_s:.3f} s; the rest by subtraction "
-            f"{prof['wall_s'] - dispatch_s - retire_s - pool_s:.3f} s (feed "
+            f"{gpu['wall_s'] - dispatch_s - retire_s - pool_s:.3f} s (feed "
             f"loop, per-member take and accounting loops, admission)")
         log(f"[serve] {backend}: GPU gateway equals the CPU gateway"
             + (" and the depth-4 pipeline" if len(runs) > 1 else "")
             + (" (flags outside the 1e-4 band)" if backend == "cuda"
                else " bit for bit"))
+        log(f"[time] serve {backend}: CPU gateway {cpu['total_s']:.1f} s, "
+            + ", ".join(f"{tag} {res['total_s']:.1f} s" for tag, res in runs)
+            + f", synchronous {sync['total_s']:.1f} s (set-up included); "
+            f"{time.perf_counter() - t_backend:.1f} s in all")
     return launches, singles
 
 # the fleet phase: shards and per-shard buckets; tenants, history, live,
 # chunk_t and arrivals per tick are phase 6's (SERVE_LOADS)
 FLEET_LOADS = {
-    "cuda-q": (4, (1024, 4096, 8192)),
+    "cuda-q": (4, (256, 1024, 2048)),
     "ensemble": (2, (256, 1024, 4096)),
     "cuda": (2, (256, 1024, 4096)),
 }
@@ -1841,18 +1879,22 @@ def _train_card_vs_cpu(seed, smi, dev):
           f"[{TRAIN_TRIP['corrupt_every']}]")
 
 
-def _profiled_rows(traced):
-    """(device us, name, count) of the device's own events (kernels,
-    copies, fills), not the host ops that launched them nor the step
-    annotations, largest first."""
-    rows = []
-    for ev in traced:
-        if str(ev.device_type).endswith("CUDA") \
-                and ev.self_device_time_total > 0 \
-                and not ev.key.startswith("ProfilerStep"):
-            rows.append((ev.self_device_time_total, ev.key, ev.count))
-    rows.sort(reverse=True)
-    return rows
+def _device_rows(prof):
+    """(device us, name, count) per name of the device's own events
+    (kernels, copies, fills; not the host ops that launched them nor the
+    step annotations), largest first.  Read from the profiler's raw
+    events: the host-side event tree that `key_averages()` builds takes
+    tens of seconds for the ~10^5 events of a serving run."""
+    acc = {}
+    for ev in prof.profiler.kineto_results.events():
+        if not str(ev.device_type()).endswith("CUDA") \
+                or ev.is_user_annotation() \
+                or ev.name().startswith("ProfilerStep"):
+            continue
+        us, count = acc.get(ev.name(), (0.0, 0))
+        acc[ev.name()] = (us + ev.duration_ns() / 1e3, count + 1)
+    return sorted(((us, name, count) for name, (us, count) in acc.items()),
+                  reverse=True)
 
 
 def _train_full(smi, dev):
@@ -1876,7 +1918,7 @@ def _train_full(smi, dev):
     t_train = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in model.parameters())
-    _profile_window(model, cfg, b, s, dev, gcfg, smi)
+    timed(_profile_window, model, cfg, b, s, dev, gcfg, smi)
     _masked_update(model, cfg, b, s, dev, smi)
     del model
     torch.cuda.empty_cache()
@@ -1895,6 +1937,9 @@ def _train_full(smi, dev):
         + (vocab_padded(cfg) - cfg.vocab) * cfg.d_model
     check(n_params == expect, f"train (b): {n_params} parameters, not "
           f"{expect}")
+    med = float(np.median(summary["step_s"][2:])) * 1e3
+    return {"ms": med, "tokens_s": b * s / med * 1e3, "peak": peak,
+            "losses": [h["loss"] for h in hist]}
 
 
 def _report_training(label, cfg, b, s, hist, summary, gcfg, every,
@@ -2034,13 +2079,12 @@ def _profile_window(model, cfg, b, s, dev, gcfg, smi, n_steps=PROFILED,
     gs = guard_init(gcfg, dev)
     stream = TokenStream(cfg.vocab, b, s)
     traced = []
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     sched = torch.profiler.schedule(wait=0, warmup=1, active=n_steps,
                                     repeat=1)
     with torch.profiler.profile(
             activities=acts, schedule=sched,
-            on_trace_ready=lambda p: traced.append(p.key_averages())) \
+            on_trace_ready=lambda p: traced.append(_device_rows(p))) \
             as prof:
         for step in range(1 + n_steps):
             if step == 1:
@@ -2055,7 +2099,7 @@ def _profile_window(model, cfg, b, s, dev, gcfg, smi, n_steps=PROFILED,
     del opt, gs
     check(len(traced) == 1, f"{label}: the profiler recorded "
           f"{len(traced)} windows, not 1")
-    rows = _profiled_rows(traced[0])
+    rows = traced[0]
     if not rows:
         log(f"{label} profile: the profiler saw no device time "
             "(not measured)")
@@ -2170,7 +2214,9 @@ def _train_resume(smi, dev):
 
 def phase_train(seed, smi):
     """Phase 8: the TEDA-guarded training loop.  The guard runs the
-    plain single-sample TEDA step, so no TEDA kernel may launch here."""
+    plain single-sample TEDA step, so no TEDA kernel may launch here.
+    Returns (b)'s ms per step, tokens/s, peak memory and losses (phase
+    12 (a) runs the same training on a mesh beside them)."""
     from repro_torch.kernels import ensemble_scan as ek
     from repro_torch.kernels import teda_q_scan as qk
     from repro_torch.kernels import teda_scan as fk
@@ -2180,14 +2226,15 @@ def phase_train(seed, smi):
     mods = (fk, qk, ek)
     for mod in mods:
         mod.launches = 0
-    _train_card_vs_cpu(seed, smi, dev)
-    _train_full(smi, dev)
-    _train_resume(smi, dev)
+    timed(_train_card_vs_cpu, seed, smi, dev)
+    full = timed(_train_full, smi, dev)
+    timed(_train_resume, smi, dev)
     counts = [mod.launches for mod in mods]
     check(counts == [0, 0, 0], f"train: TEDA kernels launched {counts} "
           "times on the training path")
     log(f"[train] no TEDA kernel launched on the training path; phase 8 "
         f"took {time.perf_counter() - t0:.1f} s")
+    return full
 
 
 # ---------------------------------------------------------- LM serving
@@ -2198,7 +2245,7 @@ LM_ARCH = "llama3.2-1b"
 # (arch, overrides, batch, prompt_len, gen): gemma2's 80 positions pass
 # its window
 LM_CMP = (("llama3.2-1b", {}, 4, 16, 16), ("gemma2-2b", {}, 2, 48, 32))
-LM_FULL = dict(batch=8, prompt_len=128, gen=128)
+LM_FULL = dict(batch=8, prompt_len=64, gen=32)
 LM_PROFILED = 8  # decode steps in (b)'s profiled window, after 2 dropped
 LM_CHECK = dict(batch=2, seq=32)  # (c)
 LM_TEL_RTOL, LM_TEL_ATOL = 1e-4, 1e-5
@@ -2431,14 +2478,13 @@ def _decode_profile(label, model, cfg, prompts, smi):
     sched = open_monitor(np.zeros((0, b, 2), np.float32), backend="cuda",
                          m=3.5, chunk_t=16, device=dev)
     traced = []
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     sch = torch.profiler.schedule(wait=0, warmup=2, active=LM_PROFILED,
                                   repeat=1)
     tok = prompts[:, 0]
     with torch.inference_mode(), torch.profiler.profile(
             activities=acts, schedule=sch,
-            on_trace_ready=lambda pr: traced.append(pr.key_averages())) \
+            on_trace_ready=lambda pr: traced.append(_device_rows(pr))) \
             as prof:
         for i in range(2 + LM_PROFILED):
             if i == 2:
@@ -2451,7 +2497,7 @@ def _decode_profile(label, model, cfg, prompts, smi):
     close_monitor(sched, b, 2 + LM_PROFILED)
     check(len(traced) == 1, f"{label}: the profiler recorded "
           f"{len(traced)} windows, not 1")
-    rows = _profiled_rows(traced[0])
+    rows = traced[0]
     if not rows:
         log(f"{label} profile: the profiler saw no device time "
             "(not measured)")
@@ -2514,12 +2560,12 @@ def _lm_profile_and_prefill(seed, smi, dev):
     model = init_lm_params(seed, cfg, device=dev)
     prompts = torch.randint(0, cfg.vocab, (b, p), generator=torch.
                             Generator().manual_seed(seed)).to(dev)
-    _prefill_rate("[lm] (b)", model, cfg, prompts, smi)
-    _decode_profile("[lm] (b)", model, cfg, prompts, smi)
+    timed(_prefill_rate, "[lm] (b)", model, cfg, prompts, smi)
+    timed(_decode_profile, "[lm] (b)", model, cfg, prompts, smi)
     # (c) float32 compute: the same weights read with another cfg
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    _decode_vs_forward("[lm] (c)", model, cfg32,
-                       prompts[:LM_CHECK["batch"], :LM_CHECK["seq"]], smi)
+    timed(_decode_vs_forward, "[lm] (c)", model, cfg32,
+          prompts[:LM_CHECK["batch"], :LM_CHECK["seq"]], smi)
 
 
 def phase_lm(seed, smi):
@@ -2527,9 +2573,9 @@ def phase_lm(seed, smi):
     launches over (b)'s two `serve()` runs."""
     t0 = time.perf_counter()
     dev = torch.device("cuda")
-    _lm_card_vs_cpu(seed, smi, dev)
-    launches = _lm_full(seed, smi, dev)
-    _lm_profile_and_prefill(seed, smi, dev)
+    timed(_lm_card_vs_cpu, seed, smi, dev)
+    launches = timed(_lm_full, seed, smi, dev)
+    timed(_lm_profile_and_prefill, seed, smi, dev)
     torch.cuda.empty_cache()
     log(f"[lm] phase 9 took {time.perf_counter() - t0:.1f} s")
     return launches
@@ -2554,7 +2600,7 @@ ZAMBA_PARAMS = 2_353_576_608
 # 8 x 256: each sequence is two 128-row SSD chunks, so the carry runs
 ZAMBA_TRAIN = dict(batch=8, seq=256, steps=12, corrupt_every=10)
 ZAMBA_PROFILED = 2
-ZAMBA_SERVE = dict(batch=8, prompt_len=128, gen=128)
+ZAMBA_SERVE = dict(batch=8, prompt_len=32, gen=16)
 MIXTRAL_ARCH = "mixtral-8x7b"
 # 32 layers hold 46.7e9 parameters (~187 GB in f32): one card holds 2
 # with their gradients and AdamW moments (~48.5 GB)
@@ -2682,23 +2728,23 @@ def _zamba2_full(seed, smi, dev):
           f"{label}: non-finite parameters after training")
     _report_training(label, cfg, b, s, hist, summary, gcfg, every, t_train,
                      peak, n_params, smi)
-    _profile_window(model, cfg, b, s, dev, gcfg, smi, n_steps=ZAMBA_PROFILED,
-                    label=label)
+    timed(_profile_window, model, cfg, b, s, dev, gcfg, smi,
+          n_steps=ZAMBA_PROFILED, label=label)
     torch.cuda.empty_cache()
 
     bs, p, gen = (ZAMBA_SERVE[k] for k in ("batch", "prompt_len", "gen"))
     prompts = torch.randint(0, cfg.vocab, (bs, p), generator=torch.
                             Generator().manual_seed(seed)).to(dev)
-    launches, _ = _serve_both(
-        label, cfg, bs, p, gen,
+    launches, _ = timed(
+        _serve_both, label, cfg, bs, p, gen,
         lambda backend: serve_prompts(model, prompts, cfg, gen,
                                       backend=backend,
                                       fmt=_lm_fmt(backend)), smi)
-    _decode_profile(label, model, cfg, prompts, smi)
-    _prefill_rate(label, model, cfg, prompts, smi)
-    _decode_vs_forward("[families] (d)", model,
-                       dataclasses.replace(cfg, compute_dtype="float32"),
-                       prompts[:FAM_CHECK["batch"], :FAM_CHECK["seq"]], smi)
+    timed(_decode_profile, label, model, cfg, prompts, smi)
+    timed(_prefill_rate, label, model, cfg, prompts, smi)
+    timed(_decode_vs_forward, "[families] (d)", model,
+          dataclasses.replace(cfg, compute_dtype="float32"),
+          prompts[:FAM_CHECK["batch"], :FAM_CHECK["seq"]], smi)
     return launches
 
 
@@ -2760,8 +2806,8 @@ def _mixtral_full(seed, smi, dev):
                 backends=("cuda",))
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
                                 capacity_factor=4.0)
-    _decode_vs_forward("[families] (d)", model, cfg32,
-                       prompts[:FAM_CHECK["batch"], :FAM_CHECK["seq"]], smi)
+    timed(_decode_vs_forward, "[families] (d)", model, cfg32,
+          prompts[:FAM_CHECK["batch"], :FAM_CHECK["seq"]], smi)
 
 
 def _fam_decode_checks(seed, smi, dev):
@@ -2782,7 +2828,7 @@ def _fam_decode_checks(seed, smi, dev):
                               compute_dtype="float32")
     model = init_lm_params(seed, cfg, device=dev)
     toks = torch.randint(0, cfg.vocab, (cb, cs), generator=gen).to(dev)
-    _decode_vs_forward("[families] (d)", model, cfg, toks, smi)
+    timed(_decode_vs_forward, "[families] (d)", model, cfg, toks, smi)
     del model
 
     cfg = dataclasses.replace(get_config(ENCDEC_ARCH),
@@ -2814,12 +2860,12 @@ def phase_families(seed, smi):
     Returns the kernels' launches over (b)'s two serving runs."""
     t0 = time.perf_counter()
     dev = torch.device("cuda")
-    _fam_card_vs_cpu(seed, smi, dev)
-    launches = _zamba2_full(seed, smi, dev)
+    timed(_fam_card_vs_cpu, seed, smi, dev)
+    launches = timed(_zamba2_full, seed, smi, dev)
     torch.cuda.empty_cache()
-    _mixtral_full(seed, smi, dev)
+    timed(_mixtral_full, seed, smi, dev)
     torch.cuda.empty_cache()
-    _fam_decode_checks(seed, smi, dev)
+    timed(_fam_decode_checks, seed, smi, dev)
     torch.cuda.empty_cache()
     log(f"[families] phase 10 took {time.perf_counter() - t0:.1f} s")
     return launches
@@ -2833,7 +2879,7 @@ DIST_CPU_T = 1 << 20  # the rows (a) also scans on the CPU
 DIST_BURSTS = ((700_000, 20), (4_194_300, 40), (9_000_000, 25),
                (16_000_000, 30))  # (first row, rows) shifted by +6
 DIST_ROW_BYTES = DIST_N * 4 + 5 * 4 + 1  # x; five f32 fields, the flag
-DIST_REPS = 2
+DIST_REPS = 1
 PIPE_ARCH, PIPE_STAGES, PIPE_MB, PIPE_SEQ = "llama3.2-1b", 4, 8, 128
 GROUP_TIMEOUT_S = 300
 
@@ -3145,17 +3191,393 @@ def phase_distributed(seed, smi):
     mods = _kernel_mods()
     for mod in mods.values():
         mod.launches = 0
-    _dist_stream_phase(seed, smi, dev)
+    timed(_dist_stream_phase, seed, smi, dev)
     torch.cuda.empty_cache()
-    _dist_group_phase(seed)
-    _dist_pipeline_phase(seed, smi, dev)
+    timed(_dist_group_phase, seed)
+    timed(_dist_pipeline_phase, seed, smi, dev)
     torch.cuda.empty_cache()
-    _dist_dryrun_phase(seed, smi, dev)
+    timed(_dist_dryrun_phase, seed, smi, dev)
     torch.cuda.empty_cache()
     launches = {name: mod.launches for name, mod in mods.items()}
     check(not any(launches.values()), f"dist: TEDA kernels launched "
           f"{launches} on the distributed paths")
     log(f"[dist] no TEDA kernel launched; phase 11 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ------------------------------------------------ the model on a mesh
+# phase 12: (a) phase 8's full-width training on a (1, 1) mesh, (b) the
+# train / prefill / decode cells on that mesh against the unsharded port
+# functions, (c) the production dry run (child processes on the CPU),
+# (d) one device's share of decode_32k on the card under a fake group,
+# (e) NCCL ranks on two or four cards
+SHARD_ARCH = "llama3.2-1b"
+SHARD_STEPS = 8  # (a): ms per step is the median of steps 2-7
+SHARD_LOSSES = 4  # (a): the first losses held against phase 8's
+SHARD_CELLS = (("train", 128, 8), ("prefill", 128, 8), ("decode", 256, 8))
+SHARD_DRY = ("train_4k", "prefill_32k", "decode_32k")
+# the first step's full lr; eps 1e-3 keeps its update linear in a
+# near-zero gradient (tests/test_torch_cells.py)
+SHARD_OPT = dict(warmup_steps=1, total_steps=10, eps=1e-3)
+SHARD_RTOL, SHARD_ATOL = 1e-3, 1e-5  # (b): bf16 compute, one card
+SHARD_LOGIT_TOL = 2e-2  # (b): prefill / decode logits, bf16 compute
+DRY_TIMEOUT_S = 600
+
+
+def _sharded_train(smi, dev, unsharded):
+    """(a): phase 8 (b)'s training (its schedule, guard and batches) for
+    SHARD_STEPS steps through `train(..., mesh=make_host_mesh())`."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import GuardConfig
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
+
+    cfg = get_config(SHARD_ARCH)
+    b, s, n = TRAIN_FULL["batch"], TRAIN_FULL["seq"], TRAIN_FULL["steps"]
+    opt = adamw.AdamWConfig(warmup_steps=min(100, n // 4 + 1),
+                            total_steps=n)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, hist, summary = train_mod.train(
+        cfg, SHARD_STEPS, b, s, None, device=dev, log_every=4,
+        guard_cfg=GuardConfig(m=3.0, warmup_steps=8),
+        corrupt_every=TRAIN_FULL["corrupt_every"], opt_cfg=opt,
+        mesh=make_host_mesh())
+    t_train = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    med = float(np.median(summary["step_s"][2:])) * 1e3
+    losses = [h["loss"] for h in hist]
+    ref = unsharded["losses"][:SHARD_LOSSES]
+    diff = max(abs(a - r) for a, r in zip(losses, ref))
+    check(all(np.isfinite(v) for v in losses), f"shard (a): losses {losses}")
+    check(np.allclose(losses[:SHARD_LOSSES], ref, rtol=TRAIN_RTOL),
+          f"shard (a): losses {losses[:SHARD_LOSSES]} against phase 8's "
+          f"{ref} (rtol {TRAIN_RTOL})")
+    log(f"[shard] (a) {cfg.name} full width through train(mesh=(1, 1) "
+        f"over a one-rank NCCL group), batch {b} x seq {s}, {SHARD_STEPS} "
+        f"steps in {t_train:.2f} s (set-up included): {med:.3f} ms per "
+        f"step (median of {SHARD_STEPS - 2}), {b * s / med * 1e3:.1f} "
+        f"tokens/s, peak {peak / 2**30:.3f} GiB ({peak} B); unsharded "
+        f"(phase 8 (b), this run): {unsharded['ms']:.3f} ms per step, "
+        f"{unsharded['tokens_s']:.1f} tokens/s, peak "
+        f"{unsharded['peak'] / 2**30:.3f} GiB; {smi}")
+    log(f"[shard] (a) first {SHARD_LOSSES} losses {losses[:SHARD_LOSSES]} "
+        f"against phase 8's {ref}: largest difference {diff:.3e} (rtol "
+        f"{TRAIN_RTOL}); ms per step "
+        f"{' '.join(f'{t * 1e3:.1f}' for t in summary['step_s'])}")
+
+
+def _timed_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _local(t):
+    """A (1, 1) mesh's DTensor as its local tensor (the whole tensor)."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _sharded_cells(seed, smi, dev):
+    """(b): llama3.2-1b at full width, the train, prefill and decode
+    cells on a (1, 1) mesh against the unsharded functions on the same
+    weights and inputs, one call each."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.core.guard import guard_init
+    from repro_torch.launch.mesh import make_host_mesh, one_rank_group
+    from repro_torch.launch.specs import (GUARD_CFG, build_cell,
+                                          distribute_model, make_train_step)
+    from repro_torch.models import (init_cache, init_lm_params,
+                                    lm_decode_step, lm_prefill)
+    from repro_torch.optim import adamw
+
+    cfg = get_config(SHARD_ARCH)
+    mesh = make_host_mesh()
+    opt = adamw.AdamWConfig(**SHARD_OPT)
+    cells = {kind: ShapeSpec(f"shard_{kind}", s, b, kind)
+             for kind, s, b in SHARD_CELLS}
+    with one_rank_group("cuda"):
+        dmesh = mesh.device_mesh("cuda")
+        model = init_lm_params(seed, cfg, dev)
+        ref = copy.deepcopy(model)
+        before = copy.deepcopy(ref)
+        cell = build_cell(SHARD_ARCH, cells["train"], mesh, cfg,
+                          opt_cfg=opt, params=model, seed=seed, dmesh=dmesh)
+        batch = {n: _local(v).clone() for n, v in cell.args[3].items()}
+        out, ms = _timed_ms(lambda: cell.fn(*cell.args))
+        rout, rms = _timed_ms(lambda: make_train_step(cfg, opt)(
+            ref, adamw.init(dict(ref.named_parameters())),
+            guard_init(GUARD_CFG, dev), batch))
+        met = {k: float(_local(out[3][k])) for k in ("loss", "grad_norm")}
+        rmet = {k: float(rout[3][k]) for k in ("loss", "grad_norm")}
+        check(all(np.isclose(met[k], rmet[k], rtol=SHARD_RTOL)
+                  for k in met), f"shard (b) train: {met} against {rmet}")
+        worst = step = 0.0
+        for (n, p), q, p0 in zip(model.named_parameters(),
+                                 ref.parameters(), before.parameters()):
+            a = _local(p.detach())
+            check(torch.allclose(a, q.detach(), rtol=SHARD_RTOL,
+                                 atol=SHARD_ATOL),
+                  f"shard (b) train: {n} differs after the step")
+            worst = max(worst, float((a - q.detach()).abs().max()))
+            step = max(step, float((q.detach() - p0.detach()).abs().max()))
+        del out, rout, before, cell
+        distribute_model(model, None, local=True)
+        del model
+        torch.cuda.empty_cache()
+        log(f"[shard] (b) train cell {cells['train'].global_batch} x "
+            f"{cells['train'].seq_len}: loss {met['loss']!r} / "
+            f"{rmet['loss']!r}, grad norm {met['grad_norm']!r} / "
+            f"{rmet['grad_norm']!r} (sharded / unsharded, rtol "
+            f"{SHARD_RTOL}); parameters after the step within rtol "
+            f"{SHARD_RTOL} / atol {SHARD_ATOL} (largest difference "
+            f"{worst:.3e}, largest update {step:.3e}); one call each: "
+            f"{ms:.3f} ms sharded, {rms:.3f} ms unsharded; {smi}")
+
+        # prefill and decode: the cell on `ref`, then the unsharded
+        # function on the same storage
+        cell = build_cell(SHARD_ARCH, cells["prefill"], mesh, cfg,
+                          params=ref, seed=seed + 1, dmesh=dmesh)
+        logits, ms = _timed_ms(lambda: cell.fn(*cell.args))
+        tokens = _local(cell.args[1]).clone()
+        distribute_model(ref, None, local=True)
+        want, rms = _timed_ms(lambda: lm_prefill(ref, tokens, cfg))
+        err = float((_local(logits) - want).detach().abs().max())
+        check(torch.allclose(_local(logits), want, rtol=SHARD_LOGIT_TOL,
+                             atol=SHARD_LOGIT_TOL),
+              f"shard (b) prefill: logits differ by {err}")
+        log(f"[shard] (b) prefill cell {cells['prefill'].global_batch} x "
+            f"{cells['prefill'].seq_len}: logits within {SHARD_LOGIT_TOL} "
+            f"(largest difference {err:.3e}); one call each: {ms:.3f} ms "
+            f"sharded, {rms:.3f} ms unsharded (lm_prefill); {smi}")
+        del cell, logits, want
+
+        sp = cells["decode"]
+        cell = build_cell(SHARD_ARCH, sp, mesh, cfg, params=ref,
+                          seed=seed + 2, dmesh=dmesh)
+        (logits, caches), ms = _timed_ms(lambda: cell.fn(*cell.args))
+        token = _local(cell.args[1]).clone()
+        distribute_model(ref, None, local=True)
+        rc = init_cache(cfg, sp.global_batch, sp.seq_len,
+                        dtype=getattr(torch, cfg.kv_dtype), device=dev)
+        (want, rc), rms = _timed_ms(
+            lambda: lm_decode_step(ref, token, 0, rc, cfg))
+        err = float((_local(logits) - want).detach().abs().max())
+        cerr = max(float((_local(t).float() - r.float()).detach().abs()
+                         .max())
+                   for c, cr in zip(caches, rc) for t, r in zip(c, cr))
+        check(torch.allclose(_local(logits), want, rtol=SHARD_LOGIT_TOL,
+                             atol=SHARD_LOGIT_TOL),
+              f"shard (b) decode: logits differ by {err}")
+        check(all(torch.allclose(_local(t).float(), r.float(),
+                                 rtol=SHARD_LOGIT_TOL, atol=SHARD_LOGIT_TOL)
+                  for c, cr in zip(caches, rc) for t, r in zip(c, cr)),
+              f"shard (b) decode: caches differ by {cerr}")
+        log(f"[shard] (b) decode cell batch {sp.global_batch}, "
+            f"{sp.seq_len}-slot {cfg.kv_dtype} cache: logits and caches "
+            f"within {SHARD_LOGIT_TOL} (largest differences {err:.3e}, "
+            f"{cerr:.3e}); one call each: {ms:.3f} ms sharded, "
+            f"{rms:.3f} ms unsharded (lm_decode_step); {smi}")
+        del cell, logits, caches, want, rc, ref
+    torch.cuda.empty_cache()
+
+
+_DRY_CHILD = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+              "from repro_torch.launch.dryrun import run_cell; "
+              "print(json.dumps(run_cell('llama3_2_1b', sys.argv[2], "
+              "'single')))")
+
+
+def _dry_children():
+    """(c): one child process per cell, on the CPU (no card visible)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return {shape: subprocess.Popen(
+        [sys.executable, "-c", _DRY_CHILD, str(ROOT / "src"), shape],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for shape in SHARD_DRY}
+
+
+def _stop_children(procs):
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def _dry_results(procs):
+    """(c)'s results, printed: per-device counts and roofline terms,
+    reckoned from shapes with H100 constants (not measured)."""
+    out = {}
+    for shape, p in procs.items():
+        text, err = p.communicate(timeout=DRY_TIMEOUT_S)
+        check(p.returncode == 0, f"shard (c) {shape}: exited "
+              f"{p.returncode}: {err[-2000:]}")
+        r = json.loads(text.strip().splitlines()[-1])
+        out[shape] = r
+        t, m = r["roofline"], r["memory"]
+        log(f"[shard] (c) {SHARD_ARCH} {shape} on the 16 x 16 mesh (a fake "
+            f"256-rank group, meta; reckoned with H100 constants, not "
+            f"measured): flops {r['flops_per_device']:.6e}, bytes "
+            f"{r['bytes_per_device']:.6e}, collective bytes "
+            f"{r['collective_bytes_per_device']:.6e} per device; compute "
+            f"{t['compute_s']:.6f} s, memory {t['memory_s']:.6f} s, "
+            f"collective {t['collective_s']:.6f} s, bound "
+            f"{t['bottleneck']}; argument {m['argument_bytes']} B, temp "
+            f"{m['temp_bytes']:.6e} B; accum {r['accum_steps']}, useful "
+            f"flop ratio {r['useful_flop_ratio']:.4f}; build "
+            f"{r['lower_s']} s, traces {r['compile_s']} s")
+    return out
+
+
+def _shard_share(dev, smi):
+    """(d): one device's share of decode_32k on the 16 x 16 mesh, its
+    shards allocated on the card under a fake 256-rank group (the
+    collectives move nothing, so the values mean nothing)."""
+    from repro_torch.configs.registry import SHAPES
+    from repro_torch.launch.dryrun import local_bytes
+    from repro_torch.launch.mesh import fake_group, make_production_mesh
+    from repro_torch.launch.specs import build_cell
+
+    sp = next(x for x in SHAPES if x.name == "decode_32k")
+    mesh = make_production_mesh()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with fake_group(mesh.size):
+        cell = build_cell("llama3_2_1b", sp, mesh, device=dev,
+                          shards_only=True)
+        args = local_bytes(*cell.args)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (logits, _), ms = _timed_ms(lambda: cell.fn(*cell.args))
+        peak = torch.cuda.max_memory_allocated()
+        shape = tuple(_local(logits).shape)
+        del cell, logits
+    torch.cuda.empty_cache()
+    log(f"[shard] (d) one device's share of {SHARD_ARCH} decode_32k (the "
+        f"16 x 16 mesh, a fake group: local shapes real, values "
+        f"meaningless): arguments {args} B on the card, peak {peak} B "
+        f"({peak - base} B above them), local logits {shape}, one call "
+        f"{ms:.3f} ms; {smi}")
+    return {"argument_bytes": args, "peak": peak, "above": peak - base}
+
+
+def _shard_rank(rank, world, port, seed):
+    """(e), one rank: the reduced llama3.2-1b train cell in float32 on a
+    (2, world / 2) mesh over NCCL against the unsharded step."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.core.guard import guard_init
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.specs import (GUARD_CFG, build_cell,
+                                          make_train_step)
+    from repro_torch.models import init_lm_params
+    from repro_torch.optim import adamw
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = Mesh((2, world // 2), ("data", "model"))
+        cfg = get_config(SHARD_ARCH).reduced(compute_dtype="float32")
+        opt = adamw.AdamWConfig(**SHARD_OPT)
+        cell = build_cell(SHARD_ARCH, ShapeSpec("t", 64, 8, "train"), mesh,
+                          cfg, opt_cfg=opt, device=dev, seed=seed)
+        batch = {n: full(v).clone() for n, v in cell.args[3].items()}
+        ref = init_lm_params(seed, cfg, dev)
+        _, _, _, rmet = make_train_step(cfg, opt)(
+            ref, adamw.init(dict(ref.named_parameters())),
+            guard_init(GUARD_CFG, dev), batch)
+        model, _, _, met = cell.fn(*cell.args)
+        for k in ("loss", "grad_norm"):
+            check(np.isclose(float(full(met[k])), float(rmet[k]),
+                             rtol=1e-4), f"shard (e) rank {rank}: {k}")
+        for (n, p), q in zip(model.named_parameters(), ref.parameters()):
+            check(torch.allclose(full(p.detach()), q.detach(), rtol=1e-3,
+                                 atol=1e-6),
+                  f"shard (e) rank {rank}: {n} differs after the step")
+        log(f"[shard] (e) rank {rank} of {world} (nccl, {dev}, mesh "
+            f"{tuple(mesh.shape.values())}): the train cell equals the "
+            "unsharded step (metrics rtol 1e-4, parameters rtol 1e-3 / "
+            "atol 1e-6)")
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_ranks(seed):
+    """(e): the train cell over NCCL ranks, one child process per card,
+    on two cards ((2, 1)) or four ((2, 2))."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[shard] (e) not measured: {n} card(s)")
+        return
+    world = 4 if n >= 4 else 2
+    port = _free_port()
+    code = ("import sys; sys.path[:0] = sys.argv[1:3]; import chip_smoke; "
+            "chip_smoke._shard_rank(*map(int, sys.argv[3:]))")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(ROOT), str(ROOT / "src"),
+         str(r), str(world), str(port), str(seed)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=GROUP_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        for ln in text.strip().splitlines()[-20:]:
+            log(f"[shard]   rank {r}| {ln}")
+        check(p.returncode == 0, f"shard (e): rank {r} exited "
+              f"{p.returncode}")
+
+
+def phase_sharded(seed, smi, unsharded, procs):
+    """Phase 12: the model side of multi-device (DTensor placements by
+    the sharding rules), with (c)'s dry-run children `procs` started
+    before phase 11 so that their traces overlap it.  No TEDA kernel may
+    launch.  Returns the kernels' launches (all 0)."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    mods = _kernel_mods()
+    for mod in mods.values():
+        mod.launches = 0
+    timed(_sharded_train, smi, dev, unsharded)
+    timed(_sharded_cells, seed, smi, dev)
+    share = timed(_shard_share, dev, smi)
+    dry = timed(_dry_results, procs)
+    want = dry["decode_32k"]["memory"]["argument_bytes"]
+    check(share["argument_bytes"] == want, f"shard (d): {share} argument "
+          f"bytes on the card, the dry run's {want}")
+    log(f"[shard] (d) against (c): arguments {share['argument_bytes']} B "
+        f"= the dry run's argument_bytes; peak {share['peak']} B on the "
+        f"card against the dry run's reckoned temp_bytes "
+        f"{dry['decode_32k']['memory']['temp_bytes']:.6e} B; {smi}")
+    timed(_shard_ranks, seed)
+    launches = {name: mod.launches for name, mod in mods.items()}
+    check(not any(launches.values()), f"shard: TEDA kernels launched "
+          f"{launches} on the sharded paths")
+    log(f"[shard] no TEDA kernel launched; phase 12 took "
         f"{time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -3176,7 +3598,7 @@ def profile_window(backend, eng, feed, warmup=2):
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=acts, schedule=sched,
-            on_trace_ready=lambda p: traced.append(p.key_averages())) \
+            on_trace_ready=lambda p: traced.append(_device_rows(p))) \
             as prof:
         for i, ch in enumerate(feed):
             eng.process(ch)
@@ -3190,7 +3612,7 @@ def profile_window(backend, eng, feed, warmup=2):
                 t0 = time.perf_counter()
     check(len(traced) == 1, f"profile {backend}: the profiler recorded "
           f"{len(traced)} cycles, not 1")
-    rows = _profiled_rows(traced[0])
+    rows = traced[0]
     busy = sum(r[0] for r in rows)
     if not rows:
         log(f"[profile] {backend}: the profiler saw no device time "
@@ -3241,21 +3663,26 @@ def main(argv=None):
         if args.teda_times:
             teda_times(args.seed, smi)
         return 0
-    phase_divider(args.seed)
-    records = phase_kernels(args.seed)
-    records.update(phase_ensemble_kernel(args.seed))
+    timed(phase_divider, args.seed)
+    records = timed(phase_kernels, args.seed)
+    records.update(timed(phase_ensemble_kernel, args.seed))
     torch.cuda.empty_cache()
-    phase_engine(args.seed)
-    phase_ensemble_engine(args.seed)
-    launches = phase_stream(args.seed, smi)
-    launches.update(phase_ensemble_stream(args.seed, smi))
-    served, singles = phase_serve(args.seed, smi)
-    fleet = phase_fleet(args.seed, smi, singles)
+    timed(phase_engine, args.seed)
+    timed(phase_ensemble_engine, args.seed)
+    launches = timed(phase_stream, args.seed, smi)
+    launches.update(timed(phase_ensemble_stream, args.seed, smi))
+    served, singles = timed(phase_serve, args.seed, smi)
+    fleet = timed(phase_fleet, args.seed, smi, singles)
     del singles
-    phase_train(args.seed, smi)
-    lm = phase_lm(args.seed, smi)
-    families = phase_families(args.seed, smi)
-    distributed = phase_distributed(args.seed, smi)
+    unsharded = timed(phase_train, args.seed, smi)
+    lm = timed(phase_lm, args.seed, smi)
+    families = timed(phase_families, args.seed, smi)
+    procs = _dry_children()
+    try:
+        distributed = timed(phase_distributed, args.seed, smi)
+        sharded = timed(phase_sharded, args.seed, smi, unsharded, procs)
+    finally:
+        _stop_children(procs)
     for name, rec in records.items():
         rec["launches"] = launches[name]
         rec["launches_serve"] = served[name]
@@ -3263,13 +3690,15 @@ def main(argv=None):
         rec["launches_lm"] = lm[name]
         rec["launches_families"] = families[name]
         rec["launches_distributed"] = distributed[name]
+        rec["launches_sharded"] = sharded[name]
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "repro" or m.startswith("repro.")
                   for m in sys.modules), "the JAX package was imported")
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_serve", "launches_fleet", "launches_lm",
-            "launches_families", "launches_distributed", "max_abs_err",
+            "launches_families", "launches_distributed",
+            "launches_sharded", "max_abs_err",
             "ms",
             "plain_ms", "bound_ms",
             "bound_by", "library_ms")

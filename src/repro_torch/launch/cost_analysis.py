@@ -5,20 +5,34 @@ The reference parses XLA's optimized HLO for its collectives and asks
 the compiled program for flops and bytes.  Here:
 
 - the axes of `sharding/collectives.py` log each collective as it runs,
-  and `collective_stats` sums the log with the reference's ring model
-  (n = the axis's size, the bytes those of one shard's result):
+  and so does `LocalOpCounter` for DTensor's functional collectives
+  (`_c10d_functional.*`, the traffic of a redistribution);
+  `collective_stats` sums a log with the reference's ring model (n =
+  the group's size, the bytes those of one shard's result):
 
-      all-gather         (n-1)/n * result_bytes
-      collective-permute 1.0     * result_bytes
+      all-gather         (n-1)/n  * result_bytes
+      reduce-scatter     (n-1)    * result_bytes
+      all-reduce         2(n-1)/n * result_bytes
+      all-to-all         (n-1)/n  * result_bytes
+      collective-permute 1.0      * result_bytes
 
   The reference counts the ops in a compiled program (an op inside a
-  loop once); the log counts the calls that ran.
+  loop once); the log counts the calls that ran.  On a CPU device mesh
+  DTensor sends an all-to-all as an all-gather and a chunk, and it is
+  logged as what ran.
 - `OpCounter` counts the aten operations of a traced run by this
-  module's own rule: one operation per output element of a pointwise
-  op or a scan (cumsum, cumprod), one per input element of a reduction,
-  none for views, copies and fills; bytes are each op's tensor inputs
-  plus its outputs, none for views.  XLA counts fused programs, so the
-  two counts are not comparable.
+  module's own rule: 2 per multiply-add of a matrix product (mm, bmm,
+  addmm, baddbmm, convolutions and attention, by the formulas of
+  `torch.utils.flop_counter`), one operation per output element of a
+  pointwise op or a scan (cumsum, cumprod), one per input element of a
+  reduction, none for views, copies and fills; bytes are each op's
+  tensor inputs plus its outputs, none for views.  XLA counts fused
+  programs, so the two counts are not comparable.
+- `LocalOpCounter` counts one device's share of a DTensor program: the
+  local ops each rank runs on its shards, not the DTensor-level op at
+  global shape, and not the op DTensor's sharding propagation runs on
+  fake tensors to learn the output's global shape.  It also keeps the
+  high-water mark of the bytes the local ops' outputs hold alive.
 
 Hardware constants, one NVIDIA H100 SXM (NVIDIA's data sheet, dense
 rates, at the 700 W power limit): 989e12 bf16 FLOP/s, 3.35e12 B/s of
@@ -26,13 +40,14 @@ HBM3, NVLink 4 with 18 links of 25 GB/s per direction.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Dict
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 __all__ = ["PEAK_FLOPS", "HBM_BW", "NVLINK_BW", "OpCounter",
-           "collective_stats", "roofline_terms"]
+           "LocalOpCounter", "collective_stats", "roofline_terms"]
 
 PEAK_FLOPS = 989e12  # bf16 / card, dense
 HBM_BW = 3.35e12  # bytes/s / card (chip_smoke.py's HBM_BYTES_PER_S)
@@ -40,14 +55,19 @@ NVLINK_BW = 25e9  # bytes/s / link, one direction
 
 _RING_FACTOR = {
     "all-gather": lambda n: (n - 1) / n,
+    "reduce-scatter": lambda n: float(n - 1),
+    "all-reduce": lambda n: 2 * (n - 1) / n,
+    "all-to-all": lambda n: (n - 1) / n,
     "collective-permute": lambda n: 1.0,
 }
 
 
 def collective_stats(axis) -> Dict[str, float]:
     """Per-kind ring-model bytes and op counts of the collectives `axis`
-    logged, under the reference's keys ("all-gather",
-    "all-gather_count", "collective-permute", ..., "total_bytes")."""
+    logged (an axis of `sharding/collectives.py` or a `LocalOpCounter`:
+    anything with a `log` of (kind, n, result bytes)), under the
+    reference's keys ("all-gather", "all-gather_count",
+    "collective-permute", ..., "total_bytes")."""
     stats: Dict[str, float] = {}
     counts: Dict[str, int] = {}
     for kind, n, size in axis.log:
@@ -100,15 +120,129 @@ class OpCounter(TorchDispatchMode):
         self.flops = 0
         self.bytes = 0
 
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
+    def _count(self, func, args, kwargs, out):
         if func.is_view:
-            return out
-        ins = list(_tensors(list(args) + list((kwargs or {}).values())))
+            return
+        ins = list(_tensors(list(args) + list(kwargs.values())))
         outs = list(_tensors(out))
         self.bytes += _bytes(ins) + _bytes(outs)
-        if torch.Tag.reduction in func.tags and ins:
+        from torch.utils.flop_counter import flop_registry
+
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.flops += formula(*args, **kwargs, out_val=out)
+        elif torch.Tag.reduction in func.tags and ins:
             self.flops += ins[0].numel()
         elif torch.Tag.pointwise in func.tags or func in _SCANS:
             self.flops += sum(t.numel() for t in outs)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self._count(func, args, kwargs, out)
+        return out
+
+
+# DTensor's functional collectives, by the reference's kind names
+_COLLECTIVES = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_to_all_single": "all-to-all",
+}
+
+
+def _group_size(group_name: str) -> int:
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    return _resolve_process_group(group_name).size()
+
+
+class LocalOpCounter(OpCounter):
+    """One device's `flops`, `bytes`, collective `log` (kind, group
+    size, result bytes) and `peak_bytes` of a DTensor program run inside
+    it.  DTensor-level ops are handed back (`NotImplemented`) so that
+    the DTensor subclass runs them and this mode sees the local ops they
+    become.  DTensor's sharding propagation runs ops at global shape to
+    learn an output's shape (on fake tensors, or on meta tensors when it
+    derives a strategy from an op's decomposition); those are not
+    counted: ops under a fake mode are skipped, and while the counter
+    is active the decomposition-based strategy (the private
+    `DecompShardingStrategy.propagate_strategy`, in torch releases that
+    have it) is marked.
+    `peak_bytes` is the most bytes that the outputs of counted non-view
+    ops held alive at once, each released when its tensor is freed (a
+    finalizer on the tensor): the local trace's live-bytes high-water
+    mark, arguments not included."""
+
+    def __init__(self):
+        super().__init__()
+        self.log = []
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._propagating = 0
+        self._patched = None
+
+    def __enter__(self):
+        try:
+            from torch.distributed.tensor._decompositions import (
+                DecompShardingStrategy as cls)
+        except ImportError:  # a release without decomposition strategies
+            return super().__enter__()
+        plain = cls.propagate_strategy
+
+        def marked(this, *args, **kwargs):
+            self._propagating += 1
+            try:
+                return plain(this, *args, **kwargs)
+            finally:
+                self._propagating -= 1
+
+        self._patched = (cls, plain)
+        cls.propagate_strategy = marked
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        if self._patched is not None:
+            cls, plain = self._patched
+            cls.propagate_strategy = plain
+            self._patched = None
+        return super().__exit__(*exc)
+
+    def _release(self, n: int):
+        self.live_bytes -= n
+
+    def _hold(self, out):
+        for t in _tensors(out):
+            n = t.numel() * t.element_size()
+            self.live_bytes += n
+            weakref.finalize(t, self._release, n)
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        if self._propagating or torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is not None:
+            return out
+        if func.namespace == "_c10d_functional":
+            # the collective's traffic goes to the log; its wait and
+            # autograd wrap hand the same tensor on
+            kind = _COLLECTIVES.get(func._opname)
+            if kind is not None:
+                n = _group_size(args[-1])
+                for t in _tensors(out):
+                    self.log.append((kind, n, t.numel() * t.element_size()))
+                self._hold(out)
+            return out
+        self._count(func, args, kwargs, out)
+        if not func.is_view:
+            self._hold(out)
         return out

@@ -19,7 +19,8 @@ in the backward instead of being kept for every chunk.
 The decode path (`decode_attention`) reads a `KVCache` of S past
 positions and writes the new token's K and V into it in place (the
 reference returns an updated copy of a donated buffer; the values are
-the same).
+the same; a DTensor cache is written shard by shard,
+`sharding/hints.py::write_slot`).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import (Params, dense, dense_init, rope,
                                        softcap)
+from repro_torch.sharding.hints import write_slot
 
 NEG = -1e30
 
@@ -212,8 +214,8 @@ def decode_attention(params, x, cache: KVCache, pos, cfg, *,
         k_new = rope(k_new, where, cfg.rope_theta)
         v_new = dense(params["wv"], x, cd).reshape(b, 1, kvh, hd)
         slot = (pos % s if ring else pos).reshape(1)
-        cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
-        cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
+        write_slot(cache.k, slot, k_new.to(cache.k.dtype))
+        write_slot(cache.v, slot, v_new.to(cache.v.dtype))
 
     q = q.reshape(b, kvh, g, hd)
     scale = hd ** -0.5 if cfg.attn_scale is None else cfg.attn_scale

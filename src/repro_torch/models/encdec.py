@@ -8,6 +8,10 @@ cross-attention + MLP.  `EncDec.enc_blocks` and `EncDec.dec_blocks` hold
 one module per layer where the reference stacks them on a leading (L,)
 axis (`models/convert.py` carries trees across).
 
+Each encoder and decoder block starts with
+`sharding/hints.py::maybe_shard(x, "residual")`, where the reference
+constrains the residual (a no-op without activation hints).
+
 Decode keeps, per decoder layer, a self-attention `KVCache` written in
 place and a cross-attention `KVCache` built once from the encoder's
 output: `{"self": [KVCache] * L, "cross": [KVCache] * L}`.
@@ -25,6 +29,7 @@ from repro_torch.models.layers import (Params, dense, embed, embedding_init,
                                        unembed)
 from repro_torch.models.mlp import mlp, mlp_init
 from repro_torch.models.transformer import _norm_fns, chunked_ce
+from repro_torch.sharding.hints import maybe_shard
 
 __all__ = ["EncDec", "init_encdec_params", "encode", "decode_train",
            "encdec_loss", "init_encdec_cache", "build_cross_cache",
@@ -95,6 +100,7 @@ def _stack(body, x, blocks, cfg, *extra):
 
 def _enc_body(x, bp, cfg):
     _, norm = _norm_fns(cfg)
+    x = maybe_shard(x, "residual")
     h = norm(bp["ln1"], x, cfg.norm_eps)
     h, _ = attend_train(bp["attn"], h, cfg, causal=False)
     x = x + h
@@ -111,6 +117,7 @@ def encode(params: EncDec, src_emb, cfg: ModelConfig):
 
 def _dec_body(x, bp, cfg, enc_out):
     _, norm = _norm_fns(cfg)
+    x = maybe_shard(x, "residual")
     h = norm(bp["ln1"], x, cfg.norm_eps)
     h, _ = attend_train(bp["self_attn"], h, cfg, causal=True)
     x = x + h

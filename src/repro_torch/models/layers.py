@@ -118,7 +118,10 @@ def embedding_init(gen, vocab: int, d: int, dtype=torch.float32,
 
 
 def embed(p, ids, compute_dtype):
-    return nn.functional.embedding(ids, p["table"]).to(compute_dtype)
+    """Rows of the table for `ids`, in `compute_dtype` (a DTensor table
+    goes through `sharding/hints.py::lookup`)."""
+    from repro_torch.sharding.hints import lookup
+    return lookup(p["table"], ids).to(compute_dtype)
 
 
 def unembed(p, x, n_real: Optional[int] = None):

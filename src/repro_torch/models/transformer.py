@@ -30,20 +30,30 @@ The "encdec" family is `models/encdec.py`.
 
 `cfg.remat` checkpoints each group (one layer, gemma2's local/global
 pair, xLSTM's mLSTM run with its sLSTM, zamba2's SSM run with the shared
-block) with `torch.utils.checkpoint`, the reference's `jax.checkpoint`
-with the "nothing" policy; "everything" runs without it and "dots" has
-no counterpart.  `cfg.scan_layers` and `cfg.outer_scan` change only how
-XLA compiles the stack, so the port ignores them: the numerics are the
-same.
+block) with `torch.utils.checkpoint`, the reference's `jax.checkpoint`:
+"nothing" saves only the group's input, "dots" also saves the outputs of
+the matrix products without batch dims (`mm`, `addmm`: the dense
+layers; not the attention's `bmm`), the reference's
+`checkpoint_dots_with_no_batch_dims`, and recomputes the rest;
+"everything" runs without it.  `cfg.scan_layers` and `cfg.outer_scan`
+change only how XLA compiles the stack, so the port ignores them: the
+numerics are the same.
+
+`lm_backbone` calls `sharding/hints.py::maybe_shard` on the residual
+where the reference does (after the embedding, at each group's entry):
+a no-op unless activation hints are installed and the residual is a
+DTensor.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models.attention import (KVCache, _as_pos, attend_train,
                                           attention_init, decode_attention)
@@ -60,13 +70,33 @@ from repro_torch.models.xlstm import (mlstm_cache_init, mlstm_decode_step,
                                       mlstm_forward, mlstm_init,
                                       slstm_cache_init, slstm_decode_step,
                                       slstm_forward, slstm_init)
+from repro_torch.sharding.hints import maybe_shard
 
 __all__ = ["BlockDef", "block_layout", "LM", "init_lm_params",
            "lm_backbone", "lm_logits", "lm_forward", "chunked_ce",
-           "lm_loss", "init_cache", "lm_decode_step", "lm_prefill"]
+           "lm_loss", "init_cache", "lm_decode_step", "lm_prefill",
+           "DOTS", "remat_context"]
 
-_LATER = ("is not ported yet (ROADMAP.md queue 1: multi-device and XLA "
-          "tooling)")
+# the matrix products without batch dims: what "dots" saves
+DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_context(policy: str):
+    """`torch.utils.checkpoint`'s `context_fn` for a remat policy:
+    "nothing" recomputes the whole group (the default contexts), "dots"
+    saves the `DOTS` outputs and recomputes the rest."""
+    if policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy)
+    if policy == "nothing":
+        from torch.utils.checkpoint import noop_context_fn
+        return noop_context_fn
+    raise ValueError(f"no checkpoint for remat_policy {policy!r}")
 
 
 # ------------------------------------------------------------- layouts --
@@ -251,6 +281,7 @@ def _group_body(x, blocks, cfg, shared, emb0):
     MoE block)."""
     aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
     x = x.to(cfg.cdtype)  # keep the remat-saved carry in bf16
+    x = maybe_shard(x, "residual")
     for bp in blocks:
         x, aux = _apply_block(bp, bp.bd, x, cfg, shared, emb0)
         if aux:
@@ -263,13 +294,12 @@ def lm_backbone(params: LM, tokens, cfg: ModelConfig):
     """tokens (B, S) int -> (final-norm hidden (B, S, d), aux)."""
     grp, n_groups = block_layout(cfg)
     _, norm = _norm_fns(cfg)
-    x = _embed(params, tokens, cfg)
+    x = maybe_shard(_embed(params, tokens, cfg), "residual")
     emb0 = x
     shared = params.shared if "shared" in params else None
-    remat = cfg.remat and torch.is_grad_enabled()
-    if remat and cfg.remat_policy == "dots":
-        raise NotImplementedError(f"remat_policy='dots' {_LATER}")
-    remat = remat and cfg.remat_policy == "nothing"
+    remat = (cfg.remat and torch.is_grad_enabled()
+             and cfg.remat_policy != "everything")
+    context_fn = remat_context(cfg.remat_policy) if remat else None
     blocks = params["blocks"]
     per = len(grp)
     auxs = []
@@ -277,7 +307,7 @@ def lm_backbone(params: LM, tokens, cfg: ModelConfig):
         group = list(blocks[g * per:(g + 1) * per])
         if remat:
             x, aux = checkpoint(_group_body, x, group, cfg, shared, emb0,
-                                use_reentrant=False)
+                                use_reentrant=False, context_fn=context_fn)
         else:
             x, aux = _group_body(x, group, cfg, shared, emb0)
         auxs.append(aux)

@@ -268,11 +268,19 @@ def test_remat_keeps_the_numerics_of_the_new_families():
 
 
 def test_remat_dots_names_the_queue():
-    """The one remat policy without a counterpart raises, naming the
-    queue item it waits for."""
+    """remat_policy "dots" (once without a counterpart, waiting for its
+    queue item) computes: the loss and every gradient bit-equal to
+    "nothing" (`tests/test_torch_remat.py` holds it against the
+    reference's "dots")."""
     cfg = get_config("zamba2-2.7b").reduced(remat=True, remat_policy="dots")
     model = init_lm_params(0, cfg, device="cpu")
+    twin = copy.deepcopy(model)
     toks = torch.from_numpy(_tokens(cfg, 1, 32, seed=8))
-    with pytest.raises(NotImplementedError,
-                       match="queue 1: multi-device and XLA tooling"):
-        lm_loss(model, {"tokens": toks}, cfg)
+    loss, _ = lm_loss(model, {"tokens": toks}, cfg)
+    loss.backward()
+    nloss, _ = lm_loss(twin, {"tokens": toks},
+                       dataclasses.replace(cfg, remat_policy="nothing"))
+    nloss.backward()
+    assert torch.isfinite(loss) and torch.equal(loss, nloss)
+    for a, b in zip(model.parameters(), twin.parameters()):
+        assert torch.equal(a.grad, b.grad)

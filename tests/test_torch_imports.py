@@ -8,9 +8,10 @@ serves through a two-shard gateway, runs an engine split over two
 devices and a word-length evaluation, trains a reduced LM for two steps,
 saves and restores a checkpoint, runs the data clouds, scans one stream
 over two CPU shards, runs a two-stage pipeline and the TEDA dry run,
-after which neither is in `sys.modules`; and no source file of the port (every
-sub-package, the LM and training ones included) names them in an
-import.
+traces a reduced decode cell on a fake four-rank group, and trains one
+step on a one-device mesh, after which neither is in `sys.modules`; and
+no source file of the port (every sub-package, the LM and training ones
+included) names them in an import.
 """
 import os
 import re
@@ -82,6 +83,22 @@ piped = make_pipelined(["cpu"] * 2, lambda w, x: x * w, 2)
 assert float(piped(torch.tensor([2.0, 3.0]), torch.ones(3, 2)).sum()) == 36
 from repro_torch.launch.teda_dryrun import run as teda_dryrun
 assert teda_dryrun(False, 1 << 12, 4)["collectives"]["all-gather_count"] == 3
+import contextlib
+from repro_torch.configs.registry import ShapeSpec
+from repro_torch.launch import dryrun, hillclimb
+from repro_torch.launch.mesh import Mesh, fake_group, make_host_mesh
+from repro_torch.launch.specs import build_cell
+from repro_torch.sharding import hints
+with fake_group(4):
+    cell = build_cell("llama3_2_1b", ShapeSpec("d", 16, 4, "decode"),
+                      Mesh((2, 2), ("data", "model")),
+                      get_config("llama3.2-1b").reduced())
+    assert dryrun._trace(cell, contextlib.nullcontext())["flops"] > 0
+assert hillclimb.parse_override("remat_policy=dots") == ("remat_policy",
+                                                         "dots")
+_, hist, _ = train(get_config("llama3.2-1b").reduced(), 1, 2, 16, None,
+                   device="cpu", mesh=make_host_mesh(device="cpu"))
+assert len(hist) == 1
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
