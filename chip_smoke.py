@@ -192,7 +192,10 @@ CUDA toolkit.  The phases, each of which raises on failure:
                prefill_32k and decode_32k on the 16 x 16 mesh (child
                processes on the CPU, a fake 256-rank group, meta):
                per-device flops, bytes, collective bytes and roofline
-               terms reckoned with H100 constants, trace seconds; (d)
+               terms reckoned with H100 constants, trace seconds, each
+               count over the JAX package's (`DRY_REF`): at most 1.25 x
+               its flops and 1.5 x its collective bytes, and no view
+               resharded (`ViewResharding`); (d)
                one device's share of decode_32k allocated on the card
                under a fake 256-rank group (local shapes real, values
                meaningless): its argument bytes equal to (c)'s, its
@@ -3223,6 +3226,21 @@ SHARD_OPT = dict(warmup_steps=1, total_steps=10, eps=1e-3)
 SHARD_RTOL, SHARD_ATOL = 1e-3, 1e-5  # (b): bf16 compute, one card
 SHARD_LOGIT_TOL = 2e-2  # (b): prefill / decode logits, bf16 compute
 DRY_TIMEOUT_S = 600
+# (c): the JAX package's per-device counts of the same cells (flops,
+# bytes, collective bytes, temp bytes), read on the CPU with JAX 0.9.0:
+# `JAX_PLATFORMS=cpu PYTHONPATH=src python -m repro.launch.dryrun --arch
+# llama3_2_1b --mesh single` (tests/test_torch_dryrun_parity.py reads
+# them live); the port may reach at most DRY_BOUNDS times the flops and
+# the collective bytes, with no `ViewResharding` retry
+DRY_REF = {
+    "train_4k": (5.0970537230336e13, 6.927610478592e12, 6.39496069121e11,
+                 4.590853512e9),
+    "prefill_32k": (1.7259914395648e13, 9.722669056e11, 1.91057124096e11,
+                    9.139667968e9),
+    "decode_32k": (1.03866198016e11, 2.04167702528e11, 2.5691875328e10,
+                   2.003830352e9),
+}
+DRY_BOUNDS = {"flops": 1.25, "collective": 1.5}
 
 
 def _sharded_train(smi, dev, unsharded):
@@ -3417,7 +3435,9 @@ def _stop_children(procs):
 
 def _dry_results(procs):
     """(c)'s results, printed: per-device counts and roofline terms,
-    reckoned from shapes with H100 constants (not measured)."""
+    reckoned from shapes with H100 constants (not measured), each count
+    against the JAX package's (`DRY_REF`); fails where the flops or the
+    collective bytes exceed `DRY_BOUNDS` or a view was resharded."""
     out = {}
     for shape, p in procs.items():
         text, err = p.communicate(timeout=DRY_TIMEOUT_S)
@@ -3426,6 +3446,23 @@ def _dry_results(procs):
         r = json.loads(text.strip().splitlines()[-1])
         out[shape] = r
         t, m = r["roofline"], r["memory"]
+        cal = r["calibration"]
+        got = (r["flops_per_device"], r["bytes_per_device"],
+               r["collective_bytes_per_device"], m["temp_bytes"])
+        ratio = dict(zip(("flops", "bytes", "collective", "temp"),
+                         (a / b for a, b in zip(got, DRY_REF[shape]))))
+        log(f"[shard] (c) {SHARD_ARCH} {shape}, port / JAX package per "
+            f"device (torch {torch.__version__}): flops "
+            f"{ratio['flops']:.4f}, bytes {ratio['bytes']:.4f}, collective "
+            f"bytes {ratio['collective']:.4f}, temp bytes "
+            f"{ratio['temp']:.4f}; views resharded "
+            f"{cal['view_fallbacks']} {cal['view_fallback_ops'][:3]}")
+        for key, bound in DRY_BOUNDS.items():
+            check(ratio[key] <= bound, f"shard (c) {shape}: {key} "
+                  f"{ratio[key]:.4f} x the JAX package's (bound {bound})")
+        check(cal["view_fallbacks"] == 0, f"shard (c) {shape}: "
+              f"{cal['view_fallbacks']} views resharded: "
+              f"{cal['view_fallback_ops'][:5]}")
         log(f"[shard] (c) {SHARD_ARCH} {shape} on the 16 x 16 mesh (a fake "
             f"256-rank group, meta; reckoned with H100 constants, not "
             f"measured): flops {r['flops_per_device']:.6e}, bytes "

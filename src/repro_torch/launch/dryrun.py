@@ -202,7 +202,8 @@ def _trace(cell, hint_ctx):
     coll = collective_stats(ops)
     return {"flops": float(ops.flops), "bytes": float(ops.bytes),
             "coll": coll["total_bytes"], "out": float(out_bytes),
-            "temp": float(ops.peak_bytes), "collectives": coll}
+            "temp": float(ops.peak_bytes), "collectives": coll,
+            "fallbacks": list(cell.fn.fallbacks)}
 
 
 def calibrate_cell(arch, sp, mesh, cfg, n_dev, seq_parallel=None,
@@ -219,9 +220,11 @@ def calibrate_cell(arch, sp, mesh, cfg, n_dev, seq_parallel=None,
     body once; the port's trace counts every op that runs, so the model
     only bounds the trace time on the CPU.  Output bytes and the
     live-bytes peak do not grow with K: they come from the first two
-    traces, linear in G.  The chunk loops are counted as they run, so
-    `loop_flops_addback` (the reference's analytic add-back) is
-    reported and not added."""
+    traces, linear in G.  `view_fallbacks` counts the views of the
+    traces that `sharding/hints.py::ViewResharding` had to retry
+    (`view_fallback_ops` lists up to 20 distinct ones).  The chunk
+    loops are counted as they run, so `loop_flops_addback` (the
+    reference's analytic add-back) is reported and not added."""
     is_train = sp.kind == "train"
     micro_b = max(sp.global_batch // accum_real, 1)
 
@@ -239,8 +242,10 @@ def calibrate_cell(arch, sp, mesh, cfg, n_dev, seq_parallel=None,
     out = {}
     f11, n_groups = measure(1, 1)
     f21, _ = measure(2, 1)
+    fell = f11.pop("fallbacks") + f21.pop("fallbacks")
     if is_train:
         f12, _ = measure(1, 2)
+        fell += f12.pop("fallbacks")
     for key in ("flops", "bytes", "coll"):
         bodym = max(f21[key] - f11[key], 0.0)
         if is_train:
@@ -258,6 +263,8 @@ def calibrate_cell(arch, sp, mesh, cfg, n_dev, seq_parallel=None,
         body = max(f21[key] - f11[key], 0.0)
         out[key] = max(f11[key] - body, 0.0) + n_groups * body
     out["loop_flops_addback"] = analytic_loop_flops(cfg, sp, n_dev)
+    out["view_fallbacks"] = len(fell)
+    out["view_fallback_ops"] = sorted({repr(f) for f in fell})[:20]
     out["n_groups"] = n_groups
     out["accum_steps"] = accum_real
     out["micro_batch"] = micro_b

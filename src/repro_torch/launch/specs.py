@@ -13,8 +13,10 @@ meta DTensors for the dry run (`launch/dryrun.py`, on a fake process
 group) or real ones for a run, and `fn` takes them as they are.  The
 default process group must hold one rank per mesh entry.  Inside `fn`
 a plain tensor meets a DTensor as a replicated one
-(`implicit_replication`), and a view that the shards cannot follow is
-taken of the view's dims replicated (`sharding/hints.py::ViewResharding`).
+(`implicit_replication`).  The model lays its sharded work out itself
+(`sharding/hints.py`); a view that the shards cannot follow is, as a
+last resort, taken of the view's dims replicated and recorded in
+`fn.fallbacks` (`sharding/hints.py::ViewResharding`).
 """
 from __future__ import annotations
 
@@ -168,14 +170,16 @@ def pick_accum_steps(mesh, global_batch: int, seq_len: int,
 # --------------------------------------------------------------- cells --
 def on_dtensors(fn):
     """`fn` with plain tensors read as replicated DTensors and views
-    resharded where DTensor's shards cannot follow them."""
+    resharded where DTensor's shards cannot follow them; each such
+    retry of its calls is appended to its `fallbacks` list."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     @functools.wraps(fn)
     def run(*args):
-        with implicit_replication(), ViewResharding():
+        with implicit_replication(), ViewResharding(run.fallbacks):
             return fn(*args)
 
+    run.fallbacks = []
     return run
 
 

@@ -31,7 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import (Params, dense, dense_init, rope,
                                        softcap)
-from repro_torch.sharding.hints import write_slot
+from repro_torch.sharding.hints import (cache_split, head_split, row_split,
+                                        write_slot)
 
 NEG = -1e30
 
@@ -72,9 +73,10 @@ def _mask(q_pos, k_pos, causal: bool, window: Optional[int]):
 
 
 def _q_chunk(qi, kc, vc, iq: int, *, q_chunk, kv_chunk, causal, window,
-             cap, scale):
+             cap, scale, q_offset=0):
     """One query chunk against every live kv chunk.
-    qi: (B, qc, KV, G, D); kc, vc: (B, nk, kc, KV, D).
+    qi: (B, qc, KV, G, D); kc, vc: (B, nk, kc, KV, D); the chunk's
+    first query at position q_offset + iq * q_chunk.
     Returns (B, qc, KV, G, D) float32."""
     b, _, kvh, g, d = qi.shape
     dev = qi.device
@@ -83,7 +85,7 @@ def _q_chunk(qi, kc, vc, iq: int, *, q_chunk, kv_chunk, causal, window,
     l = torch.zeros((b, kvh, g, q_chunk), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, kvh, g, q_chunk, d), dtype=torch.float32,
                       device=dev)
-    q_lo = iq * q_chunk
+    q_lo = q_offset + iq * q_chunk
     q_pos = q_lo + torch.arange(q_chunk, device=dev)
     qf = qi.float()  # bf16 products are exact in float32
     for j in range(kc.shape[1]):
@@ -116,11 +118,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     cap: Optional[float] = None,
                     scale: Optional[float] = None,
-                    q_chunk: int = 512, kv_chunk: int = 1024):
+                    q_chunk: int = 512, kv_chunk: int = 1024,
+                    q_offset: int = 0):
     """Online-softmax attention.
 
     q: (B, Sq, KV, G, D); k, v: (B, Sk, KV, D).  Returns
-    (B, Sq, KV, G, D) in q's dtype.  Query i sits at position i.
+    (B, Sq, KV, G, D) in q's dtype.  Query i sits at position
+    q_offset + i (the reference's `q_offset`), key j at j.
     """
     b, sq, kvh, g, d = q.shape
     sk = k.shape[1]
@@ -134,7 +138,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     kc = k.reshape(b, nk, kv_chunk, kvh, d)
     vc = v.reshape(b, nk, kv_chunk, kvh, d)
     opts = dict(q_chunk=q_chunk, kv_chunk=kv_chunk, causal=causal,
-                window=window, cap=cap, scale=scale)
+                window=window, cap=cap, scale=scale, q_offset=q_offset)
     if nq == 1 and nk == 1:
         out = _q_chunk(q, kc, vc, 0, **opts)
         return out.to(q.dtype)
@@ -159,7 +163,12 @@ def attend_train(params, x, cfg, *, causal=True, window=None,
     x: (B, S, d).  kv_x: the source of K and V (cross attention, no
     RoPE); x itself when None (self-attention, causal or not, with
     RoPE).  Returns (out (B, S, d), (k, v) of this segment).  Query
-    head h reads KV head h // G (the reference's kv-major order).
+    head h reads KV head h // G (the reference's kv-major order).  On
+    a mesh whose "model" axis splits the heads
+    (`sharding/hints.py::head_split`), each rank attends with its own
+    query heads and the KV heads they read (`_attend_local`); where the
+    heads do not split over it, with two blocks of its query rows
+    (`row_split`, `_attend_rows`).
     """
     b, s, _ = x.shape
     cross = kv_x is not None
@@ -169,10 +178,25 @@ def attend_train(params, x, cfg, *, causal=True, window=None,
     g = cfg.q_per_kv
     cd = cfg.cdtype
 
-    q = dense(params["wq"], x, cd).reshape(b, s, kvh, g, hd)
-    k = dense(params["wk"], kv_x, cd).reshape(b, sk, kvh, hd)
-    v = dense(params["wv"], kv_x, cd).reshape(b, sk, kvh, hd)
+    q = dense(params["wq"], x, cd)
+    k = dense(params["wk"], kv_x, cd)
+    v = dense(params["wv"], kv_x, cd)
+    opts = dict(causal=causal, window=window, cap=cfg.attn_softcap,
+                scale=cfg.attn_scale, q_chunk=cfg.q_chunk,
+                kv_chunk=cfg.kv_chunk)
+    split = head_split(q, h, kvh)
+    if split is not None:
+        out, kv = _attend_local(split, q, k, v, cfg, cross, positions,
+                                opts)
+        return dense(params["wo"], out, cd), kv
+    rows = row_split(q, s, cfg.q_chunk)
+    if rows is not None:
+        return _attend_rows(rows, params, q, k, v, cfg, cross, positions,
+                            opts)
 
+    q = q.reshape(b, s, kvh, g, hd)
+    k = k.reshape(b, sk, kvh, hd)
+    v = v.reshape(b, sk, kvh, hd)
     if not cross:
         if positions is None:
             positions = torch.arange(s, device=x.device)
@@ -181,11 +205,67 @@ def attend_train(params, x, cfg, *, causal=True, window=None,
         k = rope(k, torch.arange(sk, device=x.device)[None],
                  cfg.rope_theta)
 
-    out = flash_attention(
-        q, k, v, causal=causal, window=window, cap=cfg.attn_softcap,
-        scale=cfg.attn_scale, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    out = flash_attention(q, k, v, **opts)
     out = out.reshape(b, s, h * hd)
     return dense(params["wo"], out, cd), (k, v)
+
+
+def _attend_local(split, q, k, v, cfg, cross, positions, opts):
+    """`attend_train`'s attention on this rank's heads: q (B, S, h *
+    hd) and K, V (B, Sk, kvh * hd) DTensors.  Returns the output (B, S,
+    h * hd) split over "model" like q, and this rank's K and V heads
+    (B_l, Sk, kv_l, hd), local tensors."""
+    b, s, _ = q.shape
+    sk = k.shape[1]
+    hd, kvh = cfg.head_dim, cfg.n_kv
+    ql = split.local(q)
+    bl = ql.shape[0]
+    ql = ql.reshape(bl, s, split.n, hd)
+    kl = split.local(k, kv=True).reshape(bl, sk, kvh, hd)[:, :, split.kv]
+    vl = split.local(v, kv=True).reshape(bl, sk, kvh, hd)[:, :, split.kv]
+    if not cross:
+        if positions is None:
+            positions = torch.arange(s, device=ql.device)
+        ql = rope(ql, positions[None], cfg.rope_theta)
+        kl = rope(kl, torch.arange(sk, device=ql.device)[None],
+                  cfg.rope_theta)
+    kv_l = kl.shape[2]
+    out = flash_attention(ql.reshape(bl, s, kv_l, split.n // kv_l, hd),
+                          kl, vl, **opts)
+    return split.wrap(out.reshape(bl, s, split.n * hd),
+                      (b, s, q.shape[2])), (kl, vl)
+
+
+def _attend_rows(rows, params, q, k, v, cfg, cross, positions, opts):
+    """`attend_train` on this rank's two blocks of query rows
+    (`sharding/hints.py::row_split`: the heads do not split over
+    "model"), every head, the output projection on those rows; q (B, S,
+    h * hd) and K, V (B, Sk, kvh * hd) DTensors.  Returns (out, (k,
+    v)): out (B, S, d) a DTensor batch split as q, whole over "model";
+    k, v this rank's whole K and V (B_l, Sk, kvh, hd), local tensors."""
+    b, s, _ = q.shape
+    sk = k.shape[1]
+    hd, h, kvh, g = cfg.head_dim, cfg.n_heads, cfg.n_kv, cfg.q_per_kv
+    cd = cfg.cdtype
+    ql, kl, vl = rows.local(q), rows.local(k), rows.local(v)
+    bl = ql.shape[0]
+    kl = kl.reshape(bl, sk, kvh, hd)
+    vl = vl.reshape(bl, sk, kvh, hd)
+    if not cross:
+        if positions is None:
+            positions = torch.arange(s, device=ql.device)
+        kl = rope(kl, torch.arange(sk, device=ql.device)[None],
+                  cfg.rope_theta)
+    wo = rows.weight(params["wo"]["w"].to(cd))
+    outs = []
+    for lo, hi in rows.blocks:
+        qb = ql[:, lo:hi].reshape(bl, hi - lo, h, hd)
+        if not cross:
+            qb = rope(qb, positions[None, lo:hi], cfg.rope_theta)
+        ob = flash_attention(qb.reshape(bl, hi - lo, kvh, g, hd), kl, vl,
+                             **dict(opts, q_offset=lo))
+        outs.append(ob.reshape(bl, hi - lo, h * hd).to(cd) @ wo)
+    return rows.wrap(outs, (b, s, wo.shape[1])), (kl, vl)
 
 
 def decode_attention(params, x, cache: KVCache, pos, cfg, *,
@@ -198,31 +278,46 @@ def decode_attention(params, x, cache: KVCache, pos, cfg, *,
     reads the cache without update or RoPE.  `ring=True` treats the
     cache as a rolling window buffer (S == window): the new K and V
     overwrite slot pos % S and every slot is attendable, zeros included
-    until the buffer is warm, as in the reference.
+    until the buffer is warm, as in the reference.  A DTensor cache on a
+    mesh with a "model" axis is read where it lies, on each rank's own
+    shard (`sharding/hints.py::cache_split`).
     """
     b = x.shape[0]
     hd, h, kvh, g = cfg.head_dim, cfg.n_heads, cfg.n_kv, cfg.q_per_kv
     cd = cfg.cdtype
     s = cache.k.shape[1]
     pos = _as_pos(pos, x.device)
+    split = cache_split(cache.k)
+    local = split.local if split is not None else (lambda t: t)
+    scale = hd ** -0.5 if cfg.attn_scale is None else cfg.attn_scale
 
-    q = dense(params["wq"], x, cd).reshape(b, 1, kvh * g, hd)
+    q = local(dense(params["wq"], x, cd))
+    bl = q.shape[0]
+    q = q.reshape(bl, 1, kvh * g, hd)
     if not cross:
         where = pos.reshape(1, 1)
         q = rope(q, where, cfg.rope_theta)
-        k_new = dense(params["wk"], x, cd).reshape(b, 1, kvh, hd)
+        k_new = local(dense(params["wk"], x, cd)).reshape(bl, 1, kvh, hd)
         k_new = rope(k_new, where, cfg.rope_theta)
-        v_new = dense(params["wv"], x, cd).reshape(b, 1, kvh, hd)
+        v_new = local(dense(params["wv"], x, cd)).reshape(bl, 1, kvh, hd)
         slot = (pos % s if ring else pos).reshape(1)
-        write_slot(cache.k, slot, k_new.to(cache.k.dtype))
-        write_slot(cache.v, slot, v_new.to(cache.v.dtype))
+        for c, new in ((cache.k, k_new), (cache.v, v_new)):
+            new = new.to(c.dtype)
+            if split is not None:
+                new = split.wrap(new, (b, 1, kvh, hd))
+            write_slot(c, slot, new)
 
-    q = q.reshape(b, kvh, g, hd)
-    scale = hd ** -0.5 if cfg.attn_scale is None else cfg.attn_scale
+    q = q.reshape(bl, kvh, g, hd)
+    ck, cv = cache.k, cache.v
+    if split is not None:
+        q = q[:, split.kv, :, split.d]
+        ck, cv = ck.to_local(), cv.to_local()
     # compute-dtype operands, float32 products and sums (bf16 upcasts
     # exactly)
     s_log = torch.einsum("bkgd,bskd->bkgs", q.float(),
-                         cache.k.to(cd).float()) * scale
+                         ck.to(cd).float()) * scale
+    if split is not None:  # summed over D's split, whole along S
+        s_log = split.scores(s_log, (b, kvh, g, s))
     s_log = softcap(s_log, cfg.attn_softcap)
     if not (cross or ring):  # ring: every slot is attendable
         k_pos = torch.arange(s, device=x.device)
@@ -231,9 +326,15 @@ def decode_attention(params, x, cache: KVCache, pos, cfg, *,
             ok &= pos - k_pos < window
         s_log = torch.where(ok, s_log, NEG)
     p = torch.softmax(s_log, dim=-1)
+    if split is not None:
+        p = p[..., split.s]
     out = torch.einsum("bkgs,bskd->bkgd", p.to(cd).float(),
-                       cache.v.to(cd).float())
-    out = out.reshape(b, 1, h * hd).to(cd)
+                       cv.to(cd).float())
+    if split is not None:  # summed over S's split, whole heads
+        out = split.values(out, (b, kvh, g, hd))
+    out = out.reshape(bl, 1, h * hd).to(cd)
+    if split is not None:
+        out = split.wrap(out, (b, 1, h * hd))
     return dense(params["wo"], out, cd), cache
 
 

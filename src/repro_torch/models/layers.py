@@ -98,10 +98,20 @@ def dense_init(gen, d_in: int, d_out: int, bias: bool = False,
 def dense(p, x, compute_dtype=None):
     """y = x @ w (+ b): W and x cast to the compute dtype, the bias to
     the product's.  Without a compute dtype both take their promoted
-    dtype, as JAX's `@` does."""
+    dtype, as JAX's `@` does.  A DTensor product runs on its shards
+    (`sharding/hints.py::matmul`, after the cast), a row-parallel
+    product's partial sums reduced in the product's dtype (`summed`)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.hints import matmul, summed
+
     w = p["w"]
     dt = compute_dtype or torch.promote_types(x.dtype, w.dtype)
-    y = x.to(dt) @ w.to(dt)
+    x, w = x.to(dt), w.to(dt)
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        y = summed(matmul(x, w))
+    else:
+        y = x @ w
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -121,17 +131,31 @@ def embed(p, ids, compute_dtype):
     """Rows of the table for `ids`, in `compute_dtype` (a DTensor table
     goes through `sharding/hints.py::lookup`)."""
     from repro_torch.sharding.hints import lookup
-    return lookup(p["table"], ids).to(compute_dtype)
+    return lookup(p["table"], ids, compute_dtype)
 
 
 def unembed(p, x, n_real: Optional[int] = None):
     """Tied read-out: (..., d) @ (d, vocab) in float32 for a stable
-    softmax; rows at or past `n_real` (the padding) read -1e30."""
+    softmax; rows at or past `n_real` (the padding) read -1e30.  A
+    DTensor table keeps its vocab split in the logits
+    (`sharding/hints.py::matmul`)."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+
+    from repro_torch.sharding.hints import matmul, summed
+
     table = p["table"]
-    logits = x.float() @ table.float().T
+    if isinstance(table, DTensor):
+        logits = summed(matmul(x.float(), table.float().T))
+    else:
+        logits = x.float() @ table.float().T
     v = table.shape[0]
     if n_real is not None and n_real < v:
         live = torch.arange(v, device=logits.device) < n_real
+        if isinstance(logits, DTensor):  # split as the logits' vocab
+            live = distribute_tensor(live, logits.device_mesh, [
+                Shard(0) if p.is_shard(logits.ndim - 1) else Replicate()
+                for p in logits.placements], src_data_rank=None)
         logits = torch.where(live, logits, torch.full(
             (), -1e30, dtype=logits.dtype, device=logits.device))
     return logits

@@ -34,6 +34,7 @@ import torch
 from torch.nn import functional as F
 
 from repro_torch.models.layers import Params, dense_init, param
+from repro_torch.sharding.hints import placed_as, rows_reshape
 
 __all__ = ["Route", "moe_init", "moe"]
 
@@ -83,8 +84,11 @@ def moe(p, x, cfg):
             auxs.append(ai)
         aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
         return torch.cat(ys).reshape(b, s, d).to(cfg.cdtype), aux
-    y, aux = _moe_tokens(p, x.reshape(t, d), cfg)
-    return y.reshape(b, s, d).to(cfg.cdtype), aux
+    # a batch-split DTensor's tokens stay split on the local shards, and
+    # its output comes back on that layout
+    xt = rows_reshape(x, (t, d))
+    y, aux = _moe_tokens(p, xt, cfg)
+    return rows_reshape(placed_as(y, xt), (b, s, d)).to(cfg.cdtype), aux
 
 
 def _route(xf, w_router, cfg) -> Route:

@@ -70,7 +70,8 @@ from repro_torch.models.xlstm import (mlstm_cache_init, mlstm_decode_step,
                                       mlstm_forward, mlstm_init,
                                       slstm_cache_init, slstm_decode_step,
                                       slstm_forward, slstm_init)
-from repro_torch.sharding.hints import maybe_shard
+from repro_torch.sharding.hints import (maybe_shard, vocab_parallel_ce,
+                                        vocab_split)
 
 __all__ = ["BlockDef", "block_layout", "LM", "init_lm_params",
            "lm_backbone", "lm_logits", "lm_forward", "chunked_ce",
@@ -333,8 +334,11 @@ def lm_forward(params: LM, tokens, cfg: ModelConfig):
 def _ce_sum(logits_fn, x, tgt):
     """Per-token logsumexp(logits) - logits[gold], as one fused
     log-softmax + NLL (its backward has no scatter-add, so it stays
-    deterministic on the card)."""
+    deterministic on the card); over vocab-split DTensor logits, shard
+    by shard (`sharding/hints.py::vocab_parallel_ce`)."""
     logits = logits_fn(x)
+    if vocab_split(logits):
+        return vocab_parallel_ce(logits, tgt)
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            tgt.reshape(-1), reduction="none"
                            ).reshape(tgt.shape)

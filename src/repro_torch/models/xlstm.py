@@ -26,6 +26,7 @@ from torch.nn import functional as F
 from repro_torch.models.layers import (Params, dense, dense_init, param,
                                        rmsnorm, rmsnorm_init)
 from repro_torch.models.ssm import CONV_W, causal_conv
+from repro_torch.sharding.hints import elementwise
 
 __all__ = ["MLSTMCache", "mlstm_dims", "mlstm_init", "mlstm_forward",
            "mlstm_cache_init", "mlstm_decode_step", "SLSTMCache",
@@ -86,7 +87,7 @@ def mlstm_forward(params, x, cfg, d=None):
     v = dense(params["wv"], xm, cd).reshape(b, t, h, p)
     gates = dense(params["wif"], xc, cd).float()
     li = gates[..., :h]                  # log input gate (exp gate)
-    lf = F.logsigmoid(gates[..., h:])    # log forget gate
+    lf = elementwise(F.logsigmoid, gates[..., h:])  # log forget gate
 
     qch = min(cfg.ssm_chunk, t)
     if t % qch:
@@ -164,7 +165,7 @@ def mlstm_decode_step(params, x, cache: MLSTMCache, cfg, d=None):
     k = dense(params["wk"], xc, cd).reshape(b, h, p).float()
     v = dense(params["wv"], xm, cd).reshape(b, h, p).float()
     gates = dense(params["wif"], xc, cd).float()[:, 0]
-    li, lf = gates[..., :h], F.logsigmoid(gates[..., h:])
+    li, lf = gates[..., :h], elementwise(F.logsigmoid, gates[..., h:])
 
     m_new = torch.maximum(lf + cache.m, li)
     a = torch.exp(lf + cache.m - m_new)
@@ -213,7 +214,7 @@ def _slstm_cell(params, xw, state: SLSTMCache, cfg, d) -> SLSTMCache:
     pre = xw.float().reshape(-1, 4, d).transpose(0, 1) + rh
     zt = torch.tanh(pre[0])
     li = pre[1]                      # exp input gate (log space)
-    lf = F.logsigmoid(pre[2])        # sigmoid forget in log space
+    lf = elementwise(F.logsigmoid, pre[2])  # sigmoid forget in log space
     ot = torch.sigmoid(pre[3])
     m_new = torch.maximum(lf + state.m, li)
     a = torch.exp(lf + state.m - m_new)

@@ -28,8 +28,9 @@ port's parameter names to that path and stacked shape (the mapping of
 per-layer leaf gets the reference's rule for its stacked leaf.  The same
 holds for decode caches (`state_cache_shardings`).  All rules are
 advisory in the reference (GSPMD propagates them); here they are the
-placements of the arguments, and DTensor's sharding propagation plays
-GSPMD's part inside the step.
+placements of the arguments, and the model's sharded paths
+(`sharding/hints.py`: the products, attention, the decode, the
+embedding and the CE) lay the step's work out from them as GSPMD does.
 
 The fan-out splits `StreamEngine`'s chunk processing over a list of
 devices, the reference's `shard_map` over a mesh axis.  Channels are

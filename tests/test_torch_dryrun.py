@@ -3,7 +3,8 @@ CPU.
 
 - The reference's mini dry run (`tests/test_launch.py`'s
   `test_mini_dryrun_all_kinds`), at its sizes: mixtral, zamba2 and
-  gemma2 `reduced()` on a (4, 2) mesh of a fake 8-rank process group,
+  gemma2 `reduced()` (and xlstm, whose log-sigmoid DTensor has no rule
+  for in every release) on a (4, 2) mesh of a fake 8-rank process group,
   train, prefill and decode cells of batch 8 x 64 traced under
   `LocalOpCounter` on the meta device: flops above 0 and a bottleneck
   among the three.  One child interpreter per arch (the default group is
@@ -94,7 +95,8 @@ def children():
     """The mini dry runs (one child per arch) and the production cell,
     started together; {name: stdout}."""
     jobs = {arch: [sys.executable, "-c", _MINI, arch]
-            for arch in ("mixtral_8x7b", "zamba2_2p7b", "gemma2_2b")}
+            for arch in ("mixtral_8x7b", "zamba2_2p7b", "gemma2_2b",
+                         "xlstm_350m")}
     jobs["cell"] = [sys.executable, "-c", _CELL]
     procs = {k: subprocess.Popen(cmd, env=_env(), stdout=subprocess.PIPE,
                                  stderr=subprocess.PIPE, text=True)
@@ -114,7 +116,7 @@ def children():
 
 
 @pytest.mark.parametrize("arch", ["mixtral_8x7b", "zamba2_2p7b",
-                                  "gemma2_2b"])
+                                  "gemma2_2b", "xlstm_350m"])
 def test_mini_dryrun_all_kinds(children, arch):
     out = children[arch]
     assert f"MINI_DRYRUN_OK {arch}" in out
