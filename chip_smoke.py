@@ -189,8 +189,10 @@ CUDA toolkit.  The phases, each of which raises on failure:
                parameters rtol 1e-3 / atol 1e-5, logits and caches
                within 2e-2 (bf16 compute), one call each timed; (c) the
                production dry run of llama3.2-1b's train_4k,
-               prefill_32k and decode_32k on the 16 x 16 mesh (child
-               processes on the CPU, a fake 256-rank group, meta):
+               prefill_32k and decode_32k, mixtral-8x7b's train_4k and
+               prefill_32k, dbrx-132b's train_4k and xlstm-350m's
+               train_4k on the 16 x 16 mesh (child processes on the
+               CPU, a fake 256-rank group, meta):
                per-device flops, bytes, collective bytes and roofline
                terms reckoned with H100 constants, trace seconds, each
                count over the JAX package's (`DRY_REF`): at most 1.25 x
@@ -3219,7 +3221,10 @@ SHARD_ARCH = "llama3.2-1b"
 SHARD_STEPS = 8  # (a): ms per step is the median of steps 2-7
 SHARD_LOSSES = 4  # (a): the first losses held against phase 8's
 SHARD_CELLS = (("train", 128, 8), ("prefill", 128, 8), ("decode", 256, 8))
-SHARD_DRY = ("train_4k", "prefill_32k", "decode_32k")
+SHARD_DRY = (("llama3_2_1b", "train_4k"), ("llama3_2_1b", "prefill_32k"),
+             ("llama3_2_1b", "decode_32k"), ("mixtral_8x7b", "train_4k"),
+             ("mixtral_8x7b", "prefill_32k"), ("dbrx_132b", "train_4k"),
+             ("xlstm_350m", "train_4k"))
 # the first step's full lr; eps 1e-3 keeps its update linear in a
 # near-zero gradient (tests/test_torch_cells.py)
 SHARD_OPT = dict(warmup_steps=1, total_steps=10, eps=1e-3)
@@ -3227,18 +3232,28 @@ SHARD_RTOL, SHARD_ATOL = 1e-3, 1e-5  # (b): bf16 compute, one card
 SHARD_LOGIT_TOL = 2e-2  # (b): prefill / decode logits, bf16 compute
 DRY_TIMEOUT_S = 600
 # (c): the JAX package's per-device counts of the same cells (flops,
-# bytes, collective bytes, temp bytes), read on the CPU with JAX 0.9.0:
-# `JAX_PLATFORMS=cpu PYTHONPATH=src python -m repro.launch.dryrun --arch
-# llama3_2_1b --mesh single` (tests/test_torch_dryrun_parity.py reads
-# them live); the port may reach at most DRY_BOUNDS times the flops and
-# the collective bytes, with no `ViewResharding` retry
+# bytes, collective bytes, temp bytes), read on the CPU with JAX 0.9.0
+# from `run_cell(arch, shape, "single")` of `repro.launch.dryrun` (no fit
+# overrides; tests/test_torch_dryrun_parity{,_moe,_xlstm}.py read them
+# live); the port may reach at most DRY_BOUNDS times the flops and the
+# collective bytes, with no `ViewResharding` retry
 DRY_REF = {
-    "train_4k": (5.0970537230336e13, 6.927610478592e12, 6.39496069121e11,
-                 4.590853512e9),
-    "prefill_32k": (1.7259914395648e13, 9.722669056e11, 1.91057124096e11,
-                    9.139667968e9),
-    "decode_32k": (1.03866198016e11, 2.04167702528e11, 2.5691875328e10,
-                   2.003830352e9),
+    ("llama3_2_1b", "train_4k"): (5.0970537230336e13, 6.927610478592e12,
+                                  6.39496069121e11, 4.590853512e9),
+    ("llama3_2_1b", "prefill_32k"): (1.7259914395648e13, 9.722669056e11,
+                                     1.91057124096e11, 9.139667968e9),
+    ("llama3_2_1b", "decode_32k"): (1.03866198016e11, 2.04167702528e11,
+                                    2.5691875328e10, 2.003830352e9),
+    ("mixtral_8x7b", "train_4k"): (1.042104311611392e15,
+                                   3.6418615820288e13, 4.480740793944e12,
+                                   8.645339624e9),
+    ("mixtral_8x7b", "prefill_32k"): (1.4361804210176e14,
+                                      2.192835444736e12, 2.62501454592e11,
+                                      5.6174946e9),
+    ("dbrx_132b", "train_4k"): (2.835354553942016e15, 1.1061408825344e14,
+                                2.1054368628519e13, 1.0849602152e10),
+    ("xlstm_350m", "train_4k"): (1.8285885652992e13, 4.016090906624e12,
+                                 4.16860942414e11, 2.140220796e10),
 }
 DRY_BOUNDS = {"flops": 1.25, "collective": 1.5}
 
@@ -3413,17 +3428,17 @@ def _sharded_cells(seed, smi, dev):
 
 _DRY_CHILD = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
               "from repro_torch.launch.dryrun import run_cell; "
-              "print(json.dumps(run_cell('llama3_2_1b', sys.argv[2], "
+              "print(json.dumps(run_cell(sys.argv[2], sys.argv[3], "
               "'single')))")
 
 
 def _dry_children():
     """(c): one child process per cell, on the CPU (no card visible)."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    return {shape: subprocess.Popen(
-        [sys.executable, "-c", _DRY_CHILD, str(ROOT / "src"), shape],
+    return {cell: subprocess.Popen(
+        [sys.executable, "-c", _DRY_CHILD, str(ROOT / "src"), *cell],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for shape in SHARD_DRY}
+        for cell in SHARD_DRY}
 
 
 def _stop_children(procs):
@@ -3439,31 +3454,31 @@ def _dry_results(procs):
     against the JAX package's (`DRY_REF`); fails where the flops or the
     collective bytes exceed `DRY_BOUNDS` or a view was resharded."""
     out = {}
-    for shape, p in procs.items():
+    for (arch, shape), p in procs.items():
         text, err = p.communicate(timeout=DRY_TIMEOUT_S)
-        check(p.returncode == 0, f"shard (c) {shape}: exited "
+        check(p.returncode == 0, f"shard (c) {arch} {shape}: exited "
               f"{p.returncode}: {err[-2000:]}")
         r = json.loads(text.strip().splitlines()[-1])
-        out[shape] = r
+        out[arch, shape] = r
         t, m = r["roofline"], r["memory"]
         cal = r["calibration"]
         got = (r["flops_per_device"], r["bytes_per_device"],
                r["collective_bytes_per_device"], m["temp_bytes"])
         ratio = dict(zip(("flops", "bytes", "collective", "temp"),
-                         (a / b for a, b in zip(got, DRY_REF[shape]))))
-        log(f"[shard] (c) {SHARD_ARCH} {shape}, port / JAX package per "
+                         (a / b for a, b in zip(got, DRY_REF[arch, shape]))))
+        log(f"[shard] (c) {arch} {shape}, port / JAX package per "
             f"device (torch {torch.__version__}): flops "
             f"{ratio['flops']:.4f}, bytes {ratio['bytes']:.4f}, collective "
             f"bytes {ratio['collective']:.4f}, temp bytes "
             f"{ratio['temp']:.4f}; views resharded "
             f"{cal['view_fallbacks']} {cal['view_fallback_ops'][:3]}")
         for key, bound in DRY_BOUNDS.items():
-            check(ratio[key] <= bound, f"shard (c) {shape}: {key} "
+            check(ratio[key] <= bound, f"shard (c) {arch} {shape}: {key} "
                   f"{ratio[key]:.4f} x the JAX package's (bound {bound})")
-        check(cal["view_fallbacks"] == 0, f"shard (c) {shape}: "
+        check(cal["view_fallbacks"] == 0, f"shard (c) {arch} {shape}: "
               f"{cal['view_fallbacks']} views resharded: "
               f"{cal['view_fallback_ops'][:5]}")
-        log(f"[shard] (c) {SHARD_ARCH} {shape} on the 16 x 16 mesh (a fake "
+        log(f"[shard] (c) {arch} {shape} on the 16 x 16 mesh (a fake "
             f"256-rank group, meta; reckoned with H100 constants, not "
             f"measured): flops {r['flops_per_device']:.6e}, bytes "
             f"{r['bytes_per_device']:.6e}, collective bytes "
@@ -3603,13 +3618,14 @@ def phase_sharded(seed, smi, unsharded, procs):
     timed(_sharded_cells, seed, smi, dev)
     share = timed(_shard_share, dev, smi)
     dry = timed(_dry_results, procs)
-    want = dry["decode_32k"]["memory"]["argument_bytes"]
+    dec = dry["llama3_2_1b", "decode_32k"]
+    want = dec["memory"]["argument_bytes"]
     check(share["argument_bytes"] == want, f"shard (d): {share} argument "
           f"bytes on the card, the dry run's {want}")
     log(f"[shard] (d) against (c): arguments {share['argument_bytes']} B "
         f"= the dry run's argument_bytes; peak {share['peak']} B on the "
         f"card against the dry run's reckoned temp_bytes "
-        f"{dry['decode_32k']['memory']['temp_bytes']:.6e} B; {smi}")
+        f"{dec['memory']['temp_bytes']:.6e} B; {smi}")
     timed(_shard_ranks, seed)
     launches = {name: mod.launches for name, mod in mods.items()}
     check(not any(launches.values()), f"shard: TEDA kernels launched "

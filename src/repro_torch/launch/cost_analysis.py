@@ -17,9 +17,11 @@ the compiled program for flops and bytes.  Here:
       collective-permute 1.0      * result_bytes
 
   The reference counts the ops in a compiled program (an op inside a
-  loop once); the log counts the calls that ran.  On a CPU device mesh
-  DTensor sends an all-to-all as an all-gather and a chunk, and it is
-  logged as what ran.
+  loop once); the log counts the calls that ran.  A redistribution
+  from Shard(i) to Shard(j) is one all-to-all of the local result's
+  bytes, as a card runs it, also where a CPU device mesh sends it as an
+  all-gather and a chunk (`LocalOpCounter` logs the all-to-all in place
+  of that all-gather).
 - `OpCounter` counts the aten operations of a traced run by this
   module's own rule: 2 per multiply-add of a matrix product (mm, bmm,
   addmm, baddbmm, convolutions and attention, by the formulas of
@@ -172,7 +174,9 @@ class LocalOpCounter(OpCounter):
     counted: ops under a fake mode are skipped, and while the counter
     is active the decomposition-based strategy (the private
     `DecompShardingStrategy.propagate_strategy`, in torch releases that
-    have it) is marked.
+    have it) is marked.  A Shard(i) to Shard(j) redistribution is
+    logged as one all-to-all of its local result (DTensor's
+    `shard_dim_alltoall`, patched while the counter is active).
     `peak_bytes` is the most bytes that the outputs of counted non-view
     ops held alive at once, each released when its tensor is freed (a
     finalizer on the tensor): the local trace's live-bytes high-water
@@ -184,32 +188,49 @@ class LocalOpCounter(OpCounter):
         self.live_bytes = 0
         self.peak_bytes = 0
         self._propagating = 0
-        self._patched = None
+        self._patched = []
+
+    def _patch(self, owner, name, wrap):
+        plain = getattr(owner, name)
+        self._patched.append((owner, name, plain))
+        setattr(owner, name, wrap(plain))
 
     def __enter__(self):
+        from torch.distributed.tensor import placement_types
+
+        def marked(plain):
+            def propagate(this, *args, **kwargs):
+                self._propagating += 1
+                try:
+                    return plain(this, *args, **kwargs)
+                finally:
+                    self._propagating -= 1
+            return propagate
+
+        def all_to_all(plain):
+            def shard_to_shard(x, gather_dim, shard_dim, mesh, mesh_dim):
+                mark = len(self.log)
+                out = plain(x, gather_dim, shard_dim, mesh, mesh_dim)
+                del self.log[mark:]  # a CPU mesh's all-gather standing in
+                self.log.append(("all-to-all", mesh.size(mesh_dim),
+                                 out.numel() * out.element_size()))
+                return out
+            return shard_to_shard
+
         try:
             from torch.distributed.tensor._decompositions import (
-                DecompShardingStrategy as cls)
+                DecompShardingStrategy)
+            self._patch(DecompShardingStrategy, "propagate_strategy", marked)
         except ImportError:  # a release without decomposition strategies
-            return super().__enter__()
-        plain = cls.propagate_strategy
-
-        def marked(this, *args, **kwargs):
-            self._propagating += 1
-            try:
-                return plain(this, *args, **kwargs)
-            finally:
-                self._propagating -= 1
-
-        self._patched = (cls, plain)
-        cls.propagate_strategy = marked
+            pass
+        if hasattr(placement_types, "shard_dim_alltoall"):
+            self._patch(placement_types, "shard_dim_alltoall", all_to_all)
         return super().__enter__()
 
     def __exit__(self, *exc):
-        if self._patched is not None:
-            cls, plain = self._patched
-            cls.propagate_strategy = plain
-            self._patched = None
+        while self._patched:
+            owner, name, plain = self._patched.pop()
+            setattr(owner, name, plain)
         return super().__exit__(*exc)
 
     def _release(self, n: int):

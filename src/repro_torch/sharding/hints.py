@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from typing import Optional
 
 import torch
@@ -37,10 +38,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.sharding.rules import Spec, dp_axes, placements
 
 __all__ = ["activation_hints", "sp_enabled", "residual_spec", "maybe_shard",
-           "lookup", "write_slot", "matmul", "summed", "elementwise",
-           "placed_as",
-           "rows_reshape",
-           "HeadSplit",
+           "lookup", "write_slot", "matmul", "summed",
+           "rows_reshape", "batch_split", "UnitSplit", "unit_split_of",
+           "ExpertSplit", "HeadSplit",
            "head_split", "RowSplit", "row_split", "CacheSplit",
            "cache_split", "vocab_split", "vocab_parallel_ce",
            "ViewResharding"]
@@ -166,6 +166,17 @@ def _stride(shape) -> tuple:
     return tuple(reversed(out))
 
 
+def _view_shape(old, new) -> torch.Size:
+    """The shape a view of a tensor of shape `old` to `new` has (`new`
+    may hold one -1), worked out without making a tensor (one made
+    under an op counter would count as live bytes)."""
+    new = list(new)
+    if -1 in new:
+        known = math.prod(n for n in new if n != -1)
+        new[new.index(-1)] = math.prod(old) // known if known else 0
+    return torch.Size(new)
+
+
 def _mesh_axis(t, name: str):
     """The index of mesh axis `name` of DTensor `t` when it splits into
     more than one piece, else None."""
@@ -264,31 +275,6 @@ def summed(y):
         Replicate() if p.is_partial() else p for p in y.placements])
 
 
-def elementwise(fn, x):
-    """`fn(x)` for an elementwise `fn`, on a DTensor's local shard (its
-    placements kept, a pending sum reduced first): for ops DTensor has
-    no sharding rule for in some releases (`log_sigmoid_backward`)."""
-    from torch.distributed.tensor import DTensor
-
-    if not isinstance(x, DTensor):
-        return fn(x)
-    x = summed(x)
-    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
-                              run_check=False, shape=x.shape,
-                              stride=x.stride())
-
-
-def placed_as(y, x):
-    """y redistributed to x's placements when both are DTensors (a
-    block's output back on its input's layout, where DTensor's
-    propagation left it elsewhere); else y as it is."""
-    from torch.distributed.tensor import DTensor
-
-    if not (isinstance(y, DTensor) and isinstance(x, DTensor)):
-        return y
-    return y.redistribute(x.device_mesh, x.placements)
-
-
 def rows_reshape(x, shape):
     """`x.reshape(shape)` taken on the local shard for a DTensor x split
     on its leading dim alone (or whole), when the old and the new
@@ -298,14 +284,12 @@ def rows_reshape(x, shape):
     gradient arrives split over two axes (a local (256, 4096) shard of
     (65536, 4096) read as (1, 4096, 4096)).  Anything else goes to
     `reshape` as it is."""
-    import math
-
     from torch.distributed.tensor import DTensor
 
     if not isinstance(x, DTensor) or not all(
             p.is_replicate() or p.is_shard(0) for p in x.placements):
         return x.reshape(shape)
-    shape = torch.empty(x.shape, device="meta").reshape(shape).shape
+    shape = _view_shape(x.shape, shape)
     n = math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
                   if p.is_shard(0))
     if x.shape[0] % n or shape[0] % n:
@@ -529,6 +513,269 @@ def cache_split(cache) -> Optional[CacheSplit]:
     return CacheSplit(cache)
 
 
+def batch_split(x):
+    """A DTensor x with its batch (dim 0) split kept on every axis but
+    "model" and every other split or pending sum gathered (a sequence
+    split over "model" included, as Megatron gathers it before its
+    MLP); anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    mi = _mesh_axis(x, "model")
+    return x.redistribute(x.device_mesh, [
+        Shard(0) if p.is_shard(0) and i != mi else Replicate()
+        for i, p in enumerate(x.placements)])
+
+
+class UnitSplit:
+    """Recurrent work whose heads do not split over "model" (xLSTM's 4
+    heads over 16 ranks), split there by (batch row, head) units: each
+    unit's recurrence is independent of the others', so each rank of
+    "model" runs its share of the units of its batch rows on plain
+    local tensors, and nothing is exchanged inside the loop.  `rows`
+    and `heads` index this rank's units (batch row, head); where the
+    units do not fill the axis, f ranks share each unit and each
+    contributes 1 / f (`scale`).
+
+    - `gather`: a DTensor activation or state whole over every axis but
+      its batch split, local (its gradient a partial sum over "model");
+    - `weight`: a weight whole, local (its gradient a partial sum over
+      the batch split and "model");
+    - `wrap`: a local (B_l, ...) tensor holding this rank's units (zeros
+      elsewhere) as the DTensor it sums to over "model", still pending;
+    - `write`: such a tensor into a DTensor state of any split, in place.
+    """
+
+    def __init__(self, x, n_heads: int):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset)
+
+        self.mesh = mesh = x.device_mesh
+        mi = _mesh_axis(x, "model")
+        self.batch = [Shard(0) if p.is_shard(0) and i != mi else Replicate()
+                      for i, p in enumerate(x.placements)]
+        self.pending = [Partial() if i == mi else p
+                        for i, p in enumerate(self.batch)]
+        self.weight_grad = [Partial() if i == mi or p.is_shard() else p
+                            for i, p in enumerate(self.batch)]
+        rows = compute_local_shape_and_global_offset(
+            x.shape, mesh, self.batch)[0][0]
+        n = rows * n_heads
+        m = mesh.size(mi) if mi is not None else 1
+        r = mesh.get_local_rank(mi) if mi is not None else 0
+        if n % m == 0:
+            per, first, self.scale = n // m, r * (n // m), 1.0
+        elif m % n == 0:
+            per, first, self.scale = 1, r * n // m, n / m
+        else:
+            per, first, self.scale = n, 0, 1.0 / m
+            _record_fallback("xlstm.UnitSplit", x, "*")
+        dev = x.to_local().device
+        u = torch.arange(first, first + per, device=dev)
+        self.rows, self.heads = u // n_heads, u % n_heads
+
+    def gather(self, t):
+        return t.redistribute(self.mesh, self.batch).to_local(
+            grad_placements=self.pending)
+
+    def weight(self, w):
+        from torch.distributed.tensor import Replicate
+
+        return w.redistribute(self.mesh, [Replicate()] * self.mesh.ndim
+                              ).to_local(grad_placements=self.weight_grad)
+
+    def wrap(self, local, shape):
+        from torch.distributed.tensor import DTensor
+
+        if self.scale != 1.0:
+            local = local * self.scale
+        return DTensor.from_local(local, self.mesh, self.pending,
+                                  run_check=False, shape=shape,
+                                  stride=_stride(shape))
+
+    def write(self, dst, local):
+        src = self.wrap(local, dst.shape).redistribute(self.mesh,
+                                                       dst.placements)
+        dst.to_local().copy_(src.to_local())
+
+
+def unit_split_of(x, n_heads: int) -> Optional[UnitSplit]:
+    """The `UnitSplit` of a DTensor x, else None."""
+    from torch.distributed.tensor import DTensor
+
+    return UnitSplit(x, n_heads) if isinstance(x, DTensor) else None
+
+
+class ExpertSplit:
+    """The MoE's dispatch on local shards, as GSPMD splits the
+    reference's.  The tokens xf (T, d) come split on their rows over
+    the data-parallel axes (the "token axes") and whole over "model";
+    they are routed in blocks of `block` tokens, each block's routes
+    over all of its tokens, as the reference's capacity is.
+
+    - A rank whose tokens are whole blocks routes them alone.  A block
+      whose tokens lie on the ranks of the innermost token axes (the
+      "gather axes"; or on f consecutive ranks of the innermost one,
+      split for it into (n / f, f) on a derived mesh, `_split_axis`) is
+      gathered there, its router logits (T_b, E) float32 and its
+      tokens, and each of those ranks builds an even share of every
+      expert's capacity slots (`slots`; a share may run past the
+      capacity: padding, zero).  Anything else gathers every token on
+      every rank, each taking a share of every block's slots, and is
+      recorded as a view fallback.
+    - Over "model" the experts split as the expert weights are: on E
+      (expert-parallel) or on d_ff (tensor-parallel); either way each
+      rank's output is a partial sum.  The weights' other splits (FSDP)
+      are gathered where they are used (`weight`), their gradients a
+      partial sum over the token axes, reduced back onto their split.
+    - `output` sums the ranks' (rows, d) contributions onto the tokens'
+      own split; `mean` gives an aux value's mean over every block."""
+
+    def __init__(self, xf, wi, block: int, n_experts: int):
+        from torch.distributed.tensor import DTensor
+
+        self.experts = slice(0, n_experts)
+        self.home = self.mesh = mesh = xf.device_mesh
+        self.inner = None  # the home axis split for the derived mesh
+        tok = [i for i, p in enumerate(xf.placements)
+               if p.is_shard(0) and mesh.size(i) > 1]
+        rows = xf.shape[0]
+        for i in tok:
+            rows //= mesh.size(i)
+        # the gather axes: none where the local rows are whole blocks,
+        # else the innermost token axes that hold one block between them
+        self.gather = None
+        for j in range(len(tok) + 1):
+            n = rows
+            for i in tok[j:]:
+                n *= mesh.size(i)
+            if n % block == 0 and (n == block or j == len(tok)):
+                self.gather = tok[j:]
+                break
+        f = block // rows
+        if (self.gather is None and tok and block % rows == 0
+                and mesh.size(tok[-1]) % f == 0):
+            self.inner = tok[-1]
+            self.mesh = mesh = _split_axis(mesh, self.inner, f)
+            tok = tok + [self.inner + 1]
+            self.gather = [self.inner + 1]
+        if self.gather is None:
+            self.gather = tok
+            _record_fallback("moe.ExpertSplit", xf, "*")
+        self.tok = tok
+        self.mi = _mesh_axis(self._moved(xf), "model")
+        self.n_gather, self.index = 1, 0
+        for i in self.gather:
+            self.n_gather *= mesh.size(i)
+            self.index = self.index * mesh.size(i) + mesh.get_local_rank(i)
+        self.n_blocks = rows * self.n_gather // block
+        self.share = self.n_blocks * block / xf.shape[0]
+        wp = (self._moved(wi).placements[self.mi] if self.mi is not None
+              and isinstance(wi, DTensor) else None)
+        self.split = bool(wp and wp.is_shard())
+        if wp is not None and wp.is_shard(0):  # expert-parallel
+            n = n_experts // mesh.size(self.mi)
+            lo = mesh.get_local_rank(self.mi) * n
+            self.experts = slice(lo, lo + n)
+
+    def _moved(self, t, home: bool = False):
+        """A DTensor of the home mesh on the derived one (`home`: back),
+        the same local tensor: the split axis's placement is both of
+        its parts'."""
+        from torch.distributed.tensor import DTensor
+
+        if self.inner is None:
+            return t
+        i, pl = self.inner, list(t.placements)
+        pl = pl[:i] + pl[i + 1:] if home else pl[:i + 1] + pl[i:]
+        return DTensor.from_local(
+            t.to_local(), self.home if home else self.mesh, pl,
+            run_check=False, shape=t.shape, stride=t.stride())
+
+    def _place(self, gather, tok, model, other="R"):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        kinds = {"P": Partial(), "R": Replicate(), "S": Shard(0)}
+        return [kinds[gather if i in self.gather else tok if i in self.tok
+                      else model if i == self.mi else other]
+                for i in range(self.mesh.ndim)]
+
+    def rows(self, t):
+        """A (T, ...) DTensor's rows of this rank's blocks, local, whole
+        over "model" (their gradient a partial sum over the gather axes
+        and, when the experts split, over "model")."""
+        return self._moved(t).redistribute(
+            self.mesh, self._place("R", "S", "R")).to_local(
+                grad_placements=self._place(
+                    "P", "S", "P" if self.split else "R"))
+
+    def weight(self, w):
+        """An expert weight (E, d_in, d_out), local: its "model" split
+        kept, every other split gathered."""
+        from torch.distributed.tensor import Partial, Replicate
+
+        w = self._moved(w)
+        keep = [p if i == self.mi else Replicate()
+                for i, p in enumerate(w.placements)]
+        grad = [p if i == self.mi else Partial() if i in self.tok
+                else Replicate() for i, p in enumerate(keep)]
+        return w.redistribute(self.mesh, keep).to_local(grad_placements=grad)
+
+    def slots(self, cap: int) -> slice:
+        """This rank's share of each expert's `cap` slots."""
+        n = -(-cap // self.n_gather)
+        return slice(self.index * n, (self.index + 1) * n)
+
+    def output(self, contrib, shape):
+        """The rows' contributions (float32, local) summed over the
+        ranks: the (T, d) DTensor split as the tokens."""
+        from torch.distributed.tensor import DTensor
+
+        out = DTensor.from_local(
+            contrib, self.mesh, self._place(
+                "P", "S", "P" if self.split else "R"),
+            run_check=False, shape=shape, stride=_stride(shape))
+        return self._moved(out.redistribute(
+            self.mesh, self._place("S", "S", "R")), home=True)
+
+    def mean(self, v, same: bool = False):
+        """The mean over every block of an aux value, from this rank's
+        blocks' values `v` (stacked), replicated.  With `same` v is
+        equal on every rank of a block; else each of them computed it
+        from the gathered logits, whose gradient they share."""
+        from torch.distributed.tensor import DTensor, Replicate
+
+        n = 1 if same else self.n_gather * (
+            self.mesh.size(self.mi) if self.split else 1)
+        part = "R" if same else "P"
+        place = self._place(part, "P", part if self.split else "R")
+        return self._moved(DTensor.from_local(
+            v.mean() * self.share / n, self.mesh, place, run_check=False,
+            shape=(), stride=()).redistribute(
+                self.mesh, [Replicate()] * self.mesh.ndim), home=True)
+
+
+def _split_axis(mesh, axis: int, f: int):
+    """`mesh` with axis `axis` of n ranks split into (n / f, f): the
+    same ranks, the inner f consecutive ones of the axis a new axis of
+    the axis's name (the outer one gets "_blocks"); made once per mesh
+    and kept on it (every rank makes its groups in the same order)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    made = mesh.__dict__.setdefault("_split_axes", {})
+    if (axis, f) not in made:
+        names = list(mesh.mesh_dim_names)
+        shape = list(mesh.mesh.shape)
+        made[axis, f] = DeviceMesh(
+            mesh.device_type, mesh.mesh.reshape(
+                shape[:axis] + [shape[axis] // f, f] + shape[axis + 1:]),
+            mesh_dim_names=tuple(names[:axis] + [names[axis] + "_blocks"]
+                                 + names[axis:]))
+    return made[axis, f]
+
+
 def vocab_split(logits) -> bool:
     """Whether `logits` is a DTensor split on its last dim (the vocab)
     over an axis of more than one rank."""
@@ -642,6 +889,21 @@ def _refused(e: RuntimeError) -> bool:
     return any(m in str(e) for m in _VIEW_REFUSALS)
 
 
+def _record_fallback(what: str, x, dims):
+    """Note a layout that falls back to gathering `x` in the innermost
+    active `ViewResharding`'s record (a warning where none is active)."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if isinstance(mode, ViewResharding):
+            mode.record.append((what, tuple(x.shape),
+                                tuple(map(str, x.placements)), dims))
+            return
+    import warnings
+    warnings.warn(f"{what}: {tuple(x.shape)} {x.placements} gathered on "
+                  f"every rank")
+
+
 def _replicated(x, dims=None):
     """x with its shards on `dims` (every dim when None), and then its
     pending sums, replicated."""
@@ -691,7 +953,7 @@ class ViewResharding(TorchDispatchMode):
                 raise
         if func in _VIEWS and isinstance(args[0], DTensor):
             x = args[0]
-            new = torch.empty(x.shape, device="meta").view(args[1]).shape
+            new = _view_shape(x.shape, args[1])
             dims = _touched(tuple(x.shape), tuple(new))
             self._note(func, x, tuple(dims))
             return func(_replicated(x, dims), *args[1:], **kwargs)

@@ -13,7 +13,9 @@ CPU.
   16 x 16 mesh, a fake 256-rank group): the reference's result keys,
   positive counts, no loop add-back in the flops.
 - A sharded matmul's local flops are the global count over the shards;
-  redistributions are logged with their group sizes and bytes.
+  redistributions are logged with their group sizes and bytes; a
+  Shard(i) -> Shard(j) redistribution is one all-to-all of its local
+  result, where the CPU mesh sends it as an all-gather and a chunk.
 - The ring factors, `analytic_loop_flops` for every cell on both meshes
   and the 6ND model flops (`active_param_count`) equal the reference's.
 - `hillclimb.parse_override` and `compare`; the CLIs' `--list`, the
@@ -181,6 +183,36 @@ def test_sharded_matmul_counts_one_shard():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "LOCAL_OK" in res.stdout
+
+
+_ALL_TO_ALL = textwrap.dedent("""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.launch.cost_analysis import (LocalOpCounter,
+                                                  collective_stats)
+    from repro_torch.launch.mesh import Mesh, fake_group
+    mesh = Mesh((4,), ("model",))
+    with fake_group(4):
+        dm = mesh.device_mesh("cpu")
+        x = distribute_tensor(torch.empty(8, 16, device="meta"), dm,
+                              [Shard(0)], src_data_rank=None)
+        with LocalOpCounter() as ops:
+            y = x.redistribute(dm, [Shard(1)])
+        assert tuple(y.to_local().shape) == (8, 4)
+        assert ops.log == [("all-to-all", 4, 8 * 4 * 4)], ops.log
+        assert collective_stats(ops)["all-to-all"] == 8 * 4 * 4 * 3 / 4
+        with LocalOpCounter() as ops:
+            x.redistribute(dm, [Replicate()])
+        assert ops.log == [("all-gather", 4, 8 * 16 * 4)], ops.log
+    print("ALL_TO_ALL_OK")
+""")
+
+
+def test_shard_to_shard_is_one_all_to_all():
+    res = subprocess.run([sys.executable, "-c", _ALL_TO_ALL], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "ALL_TO_ALL_OK" in res.stdout
 
 
 def test_ring_factors_are_the_references():
