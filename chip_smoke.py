@@ -189,27 +189,36 @@ CUDA toolkit.  The phases, each of which raises on failure:
                parameters rtol 1e-3 / atol 1e-5, logits and caches
                within 2e-2 (bf16 compute), one call each timed; (c) the
                production dry run of llama3.2-1b's train_4k,
-               prefill_32k and decode_32k, mixtral-8x7b's train_4k and
-               prefill_32k, dbrx-132b's train_4k and xlstm-350m's
-               train_4k on the 16 x 16 mesh (child processes on the
+               prefill_32k (also with `seq_parallel=True`) and
+               decode_32k, mixtral-8x7b's train_4k and prefill_32k,
+               dbrx-132b's train_4k, xlstm-350m's train_4k and
+               seamless-m4t-medium's prefill_32k (12 encoder-decoder
+               layer pairs) on the 16 x 16 mesh (child processes on the
                CPU, a fake 256-rank group, meta):
                per-device flops, bytes, collective bytes and roofline
                terms reckoned with H100 constants, trace seconds, each
                count over the JAX package's (`DRY_REF`): at most 1.25 x
-               its flops and 1.5 x its collective bytes, and no view
-               resharded (`ViewResharding`); (d)
+               its flops, 1.5 x its collective bytes and 2 x its temp
+               bytes (the live-bytes peak), and no view resharded
+               (`ViewResharding`); (d)
                one device's share of decode_32k allocated on the card
                under a fake 256-rank group (local shapes real, values
                meaningless): its argument bytes equal to (c)'s, its
                peak memory; (e) with two or four cards, the reduced
                train cell over NCCL ranks on a (2, 1) or (2, 2) mesh
                against the unsharded step, else "not measured".
+  13. examples — the six `examples/torch_*.py` (the user surface: the
+               quickstarts, the fixed-point and DAMADICS demos, guarded
+               training, monitored serving), each a child process on
+               the card, all started together: each must exit 0 (their
+               own checks), and each reports the kernel launches it
+               made; `teda_scan` and `teda_q_scan` must launch.
 
 The last three lines are the kernels' JSON record (`launches` from
 phase 5, `launches_serve` from phase 6, `launches_fleet` from phase 7's
 gateway runs, `launches_lm` from phase 9 (b), `launches_families` from
 phase 10 (b), `launches_distributed` from phase 11, `launches_sharded`
-from phase 12), the card's name and power limit as nvidia-smi prints
+from phase 12, `launches_examples` from phase 13), the card's name and power limit as nvidia-smi prints
 them, and {"ok": true, "device": ...}.
 It exits non-zero without a result when CUDA is unavailable or the
 package is not beside it.
@@ -3221,10 +3230,17 @@ SHARD_ARCH = "llama3.2-1b"
 SHARD_STEPS = 8  # (a): ms per step is the median of steps 2-7
 SHARD_LOSSES = 4  # (a): the first losses held against phase 8's
 SHARD_CELLS = (("train", 128, 8), ("prefill", 128, 8), ("decode", 256, 8))
-SHARD_DRY = (("llama3_2_1b", "train_4k"), ("llama3_2_1b", "prefill_32k"),
-             ("llama3_2_1b", "decode_32k"), ("mixtral_8x7b", "train_4k"),
-             ("mixtral_8x7b", "prefill_32k"), ("dbrx_132b", "train_4k"),
-             ("xlstm_350m", "train_4k"))
+# (arch, shape, variant): the variant names `run_cell`'s keyword
+# arguments in DRY_VARIANTS
+SHARD_DRY = (("llama3_2_1b", "train_4k", ""),
+             ("llama3_2_1b", "prefill_32k", ""),
+             ("llama3_2_1b", "decode_32k", ""),
+             ("mixtral_8x7b", "train_4k", ""),
+             ("mixtral_8x7b", "prefill_32k", ""),
+             ("dbrx_132b", "train_4k", ""), ("xlstm_350m", "train_4k", ""),
+             ("seamless_m4t_medium", "prefill_32k", ""),
+             ("llama3_2_1b", "prefill_32k", "seq_parallel"))
+DRY_VARIANTS = {"": {}, "seq_parallel": {"seq_parallel": True}}
 # the first step's full lr; eps 1e-3 keeps its update linear in a
 # near-zero gradient (tests/test_torch_cells.py)
 SHARD_OPT = dict(warmup_steps=1, total_steps=10, eps=1e-3)
@@ -3233,29 +3249,43 @@ SHARD_LOGIT_TOL = 2e-2  # (b): prefill / decode logits, bf16 compute
 DRY_TIMEOUT_S = 600
 # (c): the JAX package's per-device counts of the same cells (flops,
 # bytes, collective bytes, temp bytes), read on the CPU with JAX 0.9.0
-# from `run_cell(arch, shape, "single")` of `repro.launch.dryrun` (no fit
-# overrides; tests/test_torch_dryrun_parity{,_moe,_xlstm}.py read them
-# live); the port may reach at most DRY_BOUNDS times the flops and the
-# collective bytes, with no `ViewResharding` retry
+# from `run_cell(arch, shape, "single", **variant)` of
+# `repro.launch.dryrun` (no fit overrides;
+# tests/test_torch_dryrun_parity{,_moe,_xlstm,_cells}.py read them
+# live); the port may reach at most DRY_BOUNDS times the flops, the
+# collective bytes and the live-bytes peak (temp bytes), with no
+# `ViewResharding` retry.  The reference counts seamless's 12 encoder-
+# decoder layer pairs as 24 groups (its flops ~1.14x its own arithmetic)
 DRY_REF = {
-    ("llama3_2_1b", "train_4k"): (5.0970537230336e13, 6.927610478592e12,
-                                  6.39496069121e11, 4.590853512e9),
-    ("llama3_2_1b", "prefill_32k"): (1.7259914395648e13, 9.722669056e11,
-                                     1.91057124096e11, 9.139667968e9),
-    ("llama3_2_1b", "decode_32k"): (1.03866198016e11, 2.04167702528e11,
-                                    2.5691875328e10, 2.003830352e9),
-    ("mixtral_8x7b", "train_4k"): (1.042104311611392e15,
-                                   3.6418615820288e13, 4.480740793944e12,
-                                   8.645339624e9),
-    ("mixtral_8x7b", "prefill_32k"): (1.4361804210176e14,
-                                      2.192835444736e12, 2.62501454592e11,
-                                      5.6174946e9),
-    ("dbrx_132b", "train_4k"): (2.835354553942016e15, 1.1061408825344e14,
-                                2.1054368628519e13, 1.0849602152e10),
-    ("xlstm_350m", "train_4k"): (1.8285885652992e13, 4.016090906624e12,
-                                 4.16860942414e11, 2.140220796e10),
+    ("llama3_2_1b", "train_4k", ""): (
+        5.0970537230336e13, 6.927610478592e12, 6.39496069121e11,
+        4.590853512e9),
+    ("llama3_2_1b", "prefill_32k", ""): (
+        1.7259914395648e13, 9.722669056e11, 1.91057124096e11,
+        9.139667968e9),
+    ("llama3_2_1b", "decode_32k", ""): (
+        1.03866198016e11, 2.04167702528e11, 2.5691875328e10,
+        2.003830352e9),
+    ("mixtral_8x7b", "train_4k", ""): (
+        1.042104311611392e15, 3.6418615820288e13, 4.480740793944e12,
+        8.645339624e9),
+    ("mixtral_8x7b", "prefill_32k", ""): (
+        1.4361804210176e14, 2.192835444736e12, 2.62501454592e11,
+        5.6174946e9),
+    ("dbrx_132b", "train_4k", ""): (
+        2.835354553942016e15, 1.1061408825344e14, 2.1054368628519e13,
+        1.0849602152e10),
+    ("xlstm_350m", "train_4k", ""): (
+        1.8285885652992e13, 4.016090906624e12, 4.16860942414e11,
+        2.140220796e10),
+    ("seamless_m4t_medium", "prefill_32k", ""): (
+        2.2857281732608e13, 1.133568188416e12, 1.64823541504e11,
+        3.766570296e9),
+    ("llama3_2_1b", "prefill_32k", "seq_parallel"): (
+        1.6931092627456e13, 7.6576561152e10, 5.517858816e9,
+        1.139934488e9),
 }
-DRY_BOUNDS = {"flops": 1.25, "collective": 1.5}
+DRY_BOUNDS = {"flops": 1.25, "collective": 1.5, "temp": 2.0}
 
 
 def _sharded_train(smi, dev, unsharded):
@@ -3429,14 +3459,15 @@ def _sharded_cells(seed, smi, dev):
 _DRY_CHILD = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
               "from repro_torch.launch.dryrun import run_cell; "
               "print(json.dumps(run_cell(sys.argv[2], sys.argv[3], "
-              "'single')))")
+              "'single', **json.loads(sys.argv[4]))))")
 
 
 def _dry_children():
     """(c): one child process per cell, on the CPU (no card visible)."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return {cell: subprocess.Popen(
-        [sys.executable, "-c", _DRY_CHILD, str(ROOT / "src"), *cell],
+        [sys.executable, "-c", _DRY_CHILD, str(ROOT / "src"), *cell[:2],
+         json.dumps(DRY_VARIANTS[cell[2]])],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for cell in SHARD_DRY}
 
@@ -3452,26 +3483,30 @@ def _dry_results(procs):
     """(c)'s results, printed: per-device counts and roofline terms,
     reckoned from shapes with H100 constants (not measured), each count
     against the JAX package's (`DRY_REF`); fails where the flops or the
-    collective bytes exceed `DRY_BOUNDS` or a view was resharded."""
+    collective bytes or the temp bytes exceed `DRY_BOUNDS` or a view was
+    resharded."""
     out = {}
-    for (arch, shape), p in procs.items():
+    for cell, p in procs.items():
+        arch, shape, variant = cell
+        shape = f"{shape} {variant}".strip()
         text, err = p.communicate(timeout=DRY_TIMEOUT_S)
         check(p.returncode == 0, f"shard (c) {arch} {shape}: exited "
               f"{p.returncode}: {err[-2000:]}")
         r = json.loads(text.strip().splitlines()[-1])
-        out[arch, shape] = r
+        out[cell] = r
         t, m = r["roofline"], r["memory"]
         cal = r["calibration"]
         got = (r["flops_per_device"], r["bytes_per_device"],
                r["collective_bytes_per_device"], m["temp_bytes"])
         ratio = dict(zip(("flops", "bytes", "collective", "temp"),
-                         (a / b for a, b in zip(got, DRY_REF[arch, shape]))))
+                         (a / b for a, b in zip(got, DRY_REF[cell]))))
         log(f"[shard] (c) {arch} {shape}, port / JAX package per "
             f"device (torch {torch.__version__}): flops "
             f"{ratio['flops']:.4f}, bytes {ratio['bytes']:.4f}, collective "
             f"bytes {ratio['collective']:.4f}, temp bytes "
             f"{ratio['temp']:.4f}; views resharded "
-            f"{cal['view_fallbacks']} {cal['view_fallback_ops'][:3]}")
+            f"{cal['view_fallbacks']} {cal['view_fallback_ops'][:3]}; "
+            f"groups {cal['n_groups']}")
         for key, bound in DRY_BOUNDS.items():
             check(ratio[key] <= bound, f"shard (c) {arch} {shape}: {key} "
                   f"{ratio[key]:.4f} x the JAX package's (bound {bound})")
@@ -3618,7 +3653,7 @@ def phase_sharded(seed, smi, unsharded, procs):
     timed(_sharded_cells, seed, smi, dev)
     share = timed(_shard_share, dev, smi)
     dry = timed(_dry_results, procs)
-    dec = dry["llama3_2_1b", "decode_32k"]
+    dec = dry["llama3_2_1b", "decode_32k", ""]
     want = dec["memory"]["argument_bytes"]
     check(share["argument_bytes"] == want, f"shard (d): {share} argument "
           f"bytes on the card, the dry run's {want}")
@@ -3633,6 +3668,70 @@ def phase_sharded(seed, smi, unsharded, procs):
     log(f"[shard] no TEDA kernel launched; phase 12 took "
         f"{time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# phase 13: the port's examples, each run as __main__ in its own child
+# process on the card; the child then prints the kernels' launch counts
+EXAMPLES = ("torch_quickstart", "torch_quickstart_engine",
+            "torch_quickstart_fixedpoint", "torch_damadics_stream",
+            "torch_train_guarded", "torch_serve_monitored")
+# the kernels each example's path must launch
+EXAMPLE_KERNELS = {"torch_quickstart": ("teda_scan",),
+                   "torch_quickstart_engine": ("teda_scan", "teda_q_scan"),
+                   "torch_quickstart_fixedpoint": ("teda_q_scan",),
+                   "torch_serve_monitored": ("teda_scan",)}
+EXAMPLE_TIMEOUT_S = 300
+_EXAMPLE_CHILD = (
+    "import json, runpy, sys; sys.path.insert(0, sys.argv[1]); "
+    "sys.argv = sys.argv[2:]; "
+    "runpy.run_path(sys.argv[0], run_name='__main__'); "
+    "from repro_torch.kernels import ensemble_scan, teda_q_scan, teda_scan; "
+    "print('LAUNCHES ' + json.dumps({m.__name__.rsplit('.', 1)[1]: "
+    "m.launches for m in (teda_scan, teda_q_scan, ensemble_scan)}))")
+
+
+def _run_example(name):
+    """One example in a child process: (returncode, stdout, stderr,
+    seconds)."""
+    t0 = time.perf_counter()
+    try:
+        p = subprocess.run(
+            [sys.executable, "-c", _EXAMPLE_CHILD, str(ROOT / "src"),
+             str(ROOT / "examples" / f"{name}.py")],
+            capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S)
+        res = (p.returncode, p.stdout, p.stderr)
+    except subprocess.TimeoutExpired as e:
+        out = e.stdout or b""  # bytes, whatever `text` asked for
+        res = (None, out.decode() if isinstance(out, bytes) else out,
+               f"timed out after {e.timeout} s")
+    return res + (time.perf_counter() - t0,)
+
+
+def phase_examples(smi):
+    """Phase 13: the six `examples/torch_*.py` on the card, each in a
+    child process (all started together, so the seconds overlap), each
+    from zeroed kernel counts (a fresh process).  Fails on a nonzero
+    exit or where an example's path did not launch its kernels.
+    Returns the kernels' launches summed over the examples."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(EXAMPLES)) as pool:
+        runs = dict(zip(EXAMPLES, pool.map(_run_example, EXAMPLES)))
+    total = dict.fromkeys(_kernel_mods(), 0)
+    for name, (rc, out, err, secs) in runs.items():
+        lines = out.strip().splitlines()
+        for ln in lines[-8:]:
+            log(f"[examples]   {name}| {ln[:110]}")
+        check(rc == 0, f"examples: {name} exited {rc}: {err[-2000:]}")
+        got = json.loads(lines[-1].removeprefix("LAUNCHES "))
+        for k, n in got.items():
+            total[k] += n
+        log(f"[examples] {name}: exit 0 in {secs:.1f} s, kernel launches "
+            f"{got}")
+        for k in EXAMPLE_KERNELS.get(name, ()):
+            check(got[k] > 0, f"examples: {name} launched no {k}")
+    log(f"[examples] launches over the six examples {total}; {smi}")
+    return total
 
 
 def profile_window(backend, eng, feed, warmup=2):
@@ -3730,6 +3829,7 @@ def main(argv=None):
     unsharded = timed(phase_train, args.seed, smi)
     lm = timed(phase_lm, args.seed, smi)
     families = timed(phase_families, args.seed, smi)
+    examples = timed(phase_examples, smi)
     procs = _dry_children()
     try:
         distributed = timed(phase_distributed, args.seed, smi)
@@ -3744,6 +3844,7 @@ def main(argv=None):
         rec["launches_families"] = families[name]
         rec["launches_distributed"] = distributed[name]
         rec["launches_sharded"] = sharded[name]
+        rec["launches_examples"] = examples[name]
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "repro" or m.startswith("repro.")
                   for m in sys.modules), "the JAX package was imported")
@@ -3751,7 +3852,7 @@ def main(argv=None):
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_serve", "launches_fleet", "launches_lm",
             "launches_families", "launches_distributed",
-            "launches_sharded", "max_abs_err",
+            "launches_sharded", "launches_examples", "max_abs_err",
             "ms",
             "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -9,14 +9,14 @@ does, bit for bit with the JAX package's `fixedpoint/qformat.py`:
     2^(WL-1)-1];
   * `sat_mul` — the full 2*WL-bit product, >> FL with truncation toward
     zero (or round-half-away), saturating;
-  * `div_qq` / `div_qi` — the bit-serial restoring divider, one quotient
-    bit per clock.
+  * `div_qq` / `div_qi` — the bit-serial restoring divider (one
+    quotient bit per clock), its function computed with one divide.
 
 PyTorch has no shifts, floor division or comparisons on uint32, so the
 uint32 magnitude arithmetic of the reference runs here on int64: the
-magnitudes are at most 2^31, their products at most 2^62, and the
-divider's 32-bit registers are masked where uint32 would wrap.  The
-results are narrowed back to int32.
+magnitudes are at most 2^31, their products and the divider's shifted
+dividends below 2^62, and the 32-bit registers' wraps are worked out
+(`_div_mag`).  The results are narrowed back to int32.
 """
 from __future__ import annotations
 
@@ -171,32 +171,32 @@ def sat_mul(fmt: QFormat, a, b) -> torch.Tensor:
 
 # ---------------------------------------------------------------- divide
 def _div_mag(n: torch.Tensor, d: torch.Tensor, shift: int,
-             rounding: str, qmax: int) -> torch.Tensor:
-    """floor((n << shift) / d) on 32-bit magnitudes, bit-serial (int64).
+             rounding: str, qmax: int,
+             mask_top: bool = True) -> torch.Tensor:
+    """floor((n << shift) / d) on 32-bit magnitudes: the function of the
+    bit-serial divider, computed with one int64 divide.
 
-    Restoring shift-subtract long division, one quotient bit per
-    iteration; bit i of (n << shift) is streamed MSB-first and the wide
-    dividend is never materialized.  d == 0 saturates to qmax.  The
-    remainder and quotient registers are 32 bits wide: masked wherever
-    the reference's uint32 shifts wrap.  Returns int64 in [0, qmax].
+    The hardware (and the reference) divide by restoring shift-subtract
+    long division, one quotient bit per iteration, bit i of (n << shift)
+    streamed MSB-first through a 32-bit remainder and a 32-bit quotient
+    register.  Only bits 30..0 of n are streamed (n = 2^31, |int32 min|,
+    reads as 0); the remainder stays below d <= 2^31, so it never sheds
+    a bit; the quotient register sheds one exactly when the quotient
+    reaches 2^32, and that, like d == 0, saturates to qmax.  So the
+    quotient is the integer one of (n mod 2^31) << shift, below 2^62,
+    rounded half up under "round".  `mask_top=False` streams n whole
+    (the kernels' divider, `kernels/qdiv.py::fast_div_mag`).  Returns
+    int64 in [0, qmax].
     """
     n, d = torch.broadcast_tensors(n, d)
-    zero = torch.zeros_like(n)
-    r, q, lost = zero, zero, zero
-    for j in range(31 + shift):
-        bit = (n >> (30 - j)) & 1 if j <= 30 else zero
-        lost = lost | (r >> 31)
-        r = ((r << 1) | bit) & _MASK32
-        ge = r >= d
-        lost = lost | (q >> 31)
-        q = ((q << 1) | ge.to(torch.int64)) & _MASK32
-        r = torch.where(ge, r - d, r)
+    num = (n & (_MASK32 >> 1) if mask_top else n) << shift
+    pos = d > 0
+    den = torch.where(pos, d, torch.ones_like(d))
+    q = torch.div(num, den, rounding_mode="floor")
     if rounding == "round":
-        half_up = (r >= (d >> 1) + (d & 1)) & (d > 0)
-        q2 = (q + half_up.to(torch.int64)) & _MASK32
-        lost = lost | (q2 < q).to(torch.int64)
-        q = q2
-    return torch.where((lost > 0) | (q > qmax), torch.full_like(q, qmax), q)
+        half_up = num - q * den >= (den >> 1) + (den & 1)
+        q = q + half_up.to(torch.int64)
+    return torch.where(~pos | (q > qmax), torch.full_like(q, qmax), q)
 
 
 def _signed_div(fmt: QFormat, num, den, shift: int, mag_fn) -> torch.Tensor:
@@ -208,7 +208,8 @@ def _signed_div(fmt: QFormat, num, den, shift: int, mag_fn) -> torch.Tensor:
 
 
 def div_qq(fmt: QFormat, num, den) -> torch.Tensor:
-    """Saturating Q / Q -> Q: computes (num << FL) / den bit-serially."""
+    """Saturating Q / Q -> Q: (num << FL) / den as the bit-serial
+    divider computes it."""
     return _signed_div(fmt, num, den, fmt.frac_len, _div_mag)
 
 

@@ -1,15 +1,9 @@
 """Host-width exact image of the fixed-point bit-serial divider.
 
-`fixedpoint.qformat._div_mag` is the model: restoring shift-subtract
-long division, one quotient bit per iteration.  This module computes
-the same function with one integer divide: the first 31 iterations of
-the model stream the numerator's 31 magnitude bits, after which
-`q = n // d`, `r = n % d`; the remaining `shift` iterations stream zeros
-and stay explicit restoring steps on the remainder.  Round-half-up, the
-d == 0 saturation and the lost-bit tracking replicate the model's.
-
-All arithmetic is int64 (torch has no uint32 shifts or division); the
-32-bit quotient register is masked where uint32 would wrap.
+`fixedpoint.qformat._div_mag` is the model: the function of restoring
+shift-subtract long division, one quotient bit per iteration, computed
+with one int64 divide (torch has no uint32 shifts or division).
+`fast_div_mag` is the same divide with the numerator's top bit kept.
 
 The CUDA kernels compute the same function another way
 (`q_recip_div_mag` in `csrc/qformat.cuh`): a quotient estimate from a
@@ -25,7 +19,8 @@ from functools import partial
 import numpy as np
 import torch
 
-from repro_torch.fixedpoint.qformat import _MASK32, QFormat, _signed_div
+from repro_torch.fixedpoint.qformat import (_MASK32, QFormat, _div_mag,
+                                            _signed_div)
 
 __all__ = ["fast_div_mag", "fast_div_qq", "fast_div_qi", "recip",
            "recip_2k", "recip_div_mag", "recip_div_qq", "recip_div_qi",
@@ -35,32 +30,10 @@ __all__ = ["fast_div_mag", "fast_div_qq", "fast_div_qi", "recip",
 def fast_div_mag(n: torch.Tensor, d: torch.Tensor, shift: int,
                  rounding: str, qmax: int) -> torch.Tensor:
     """floor((n << shift) / d) on 32-bit magnitudes (int64 tensors,
-    n <= 2^31) — `_div_mag` bits.  Returns int64 in [0, qmax]."""
-    n, d = torch.broadcast_tensors(n, d)
-    dz = d == 0  # the model's guard-free divider saturates on d == 0
-    ds = torch.where(dz, torch.ones_like(d), d)
-
-    # iterations 0..30 of the model in one divide: q = n/d, r = n%d
-    q = torch.div(n, ds, rounding_mode="floor")
-    r = n - q * ds
-    lost = torch.zeros_like(n)
-
-    # iterations 31..31+shift-1: zero dividend bits; r < d <= 2^31, so
-    # only q can shed a high bit
-    for _ in range(shift):
-        lost = lost | (q >> 31)
-        r = r << 1
-        ge = r >= ds
-        q = ((q << 1) | ge.to(torch.int64)) & _MASK32
-        r = torch.where(ge, r - ds, r)
-
-    if rounding == "round":
-        half_up = r >= (ds >> 1) + (ds & 1)
-        q2 = (q + half_up.to(torch.int64)) & _MASK32
-        lost = lost | (q2 < q).to(torch.int64)
-        q = q2
-    return torch.where(dz | (lost > 0) | (q > qmax),
-                       torch.full_like(q, qmax), q)
+    n <= 2^31) — `_div_mag` with n streamed whole (n = 2^31 is divided
+    as it is, where the model streams it as 0).  Returns int64 in
+    [0, qmax]."""
+    return _div_mag(n, d, shift, rounding, qmax, mask_top=False)
 
 
 def fast_div_qq(fmt: QFormat, num, den) -> torch.Tensor:

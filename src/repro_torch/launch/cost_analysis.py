@@ -177,16 +177,24 @@ class LocalOpCounter(OpCounter):
     have it) is marked.  A Shard(i) to Shard(j) redistribution is
     logged as one all-to-all of its local result (DTensor's
     `shard_dim_alltoall`, patched while the counter is active).
-    `peak_bytes` is the most bytes that the outputs of counted non-view
-    ops held alive at once, each released when its tensor is freed (a
-    finalizer on the tensor): the local trace's live-bytes high-water
-    mark, arguments not included."""
+    `peak_bytes` is the most bytes that the outputs of counted ops held
+    alive at once: the local trace's live-bytes high-water mark,
+    arguments not included.  Bytes are counted per storage: a new
+    output's storage is counted once, and every tensor that shares it
+    afterwards (a view, an in-place op's result, a collective's output
+    handed on by `wait_tensor`) holds it too; it is released when the
+    last of its holders is freed (a finalizer on each holding tensor,
+    keyed by the storage's address, which a tensor shares with its
+    views on the meta device too).  A storage first seen through an
+    aliasing output (a view of an argument) is not counted."""
 
     def __init__(self):
         super().__init__()
         self.log = []
         self.live_bytes = 0
         self.peak_bytes = 0
+        self._storages = {}  # storage address -> [holders, bytes]
+        self._holders = {}  # storage address -> holding tensors
         self._propagating = 0
         self._patched = []
 
@@ -233,14 +241,49 @@ class LocalOpCounter(OpCounter):
             setattr(owner, name, plain)
         return super().__exit__(*exc)
 
-    def _release(self, n: int):
-        self.live_bytes -= n
+    def _release(self, key: int):
+        """A holding tensor of the storage at address `key` was freed."""
+        self._holders[key] -= 1
+        entry = self._storages[key]
+        if not self._holders[key]:  # the address may be reused now
+            del self._holders[key], self._storages[key]
+        entry[0] -= 1
+        if not entry[0]:
+            self.live_bytes -= entry[1]
 
-    def _hold(self, out):
-        for t in _tensors(out):
-            n = t.numel() * t.element_size()
-            self.live_bytes += n
-            weakref.finalize(t, self._release, n)
+    def _hold(self, func, args, out):
+        """Count the storages of `func`'s outputs: a storage already
+        held gains a holder; a new one is counted unless the output
+        aliases an input (the schema's alias annotation).  The output of
+        a pass-through `_c10d_functional` op (`wait_tensor`, the
+        autograd wrap of a collective's result) holds its input's
+        bytes, also where the op made a new storage for it (as it does
+        on the meta device).  A storage is known by its address while a
+        holding tensor keeps it alive."""
+        outs = out if isinstance(out, (list, tuple)) else (out,)
+        rets = func._schema.returns
+        passed = (func.namespace == "_c10d_functional"
+                  and func._opname not in _COLLECTIVES
+                  and args and isinstance(args[0], torch.Tensor))
+        for i, t in enumerate(outs):
+            if not isinstance(t, torch.Tensor):
+                continue
+            key = t.untyped_storage()._cdata
+            entry = self._storages.get(key)
+            if entry is None and passed:
+                entry = self._storages.get(args[0].untyped_storage()._cdata)
+            if entry is None:
+                # a multi-output view (split, unbind) has one list return
+                ret = rets[min(i, len(rets) - 1)] if rets else None
+                if passed or (ret is not None
+                              and ret.alias_info is not None):
+                    continue
+                entry = [0, t.untyped_storage().nbytes()]
+                self.live_bytes += entry[1]
+            self._storages[key] = entry
+            self._holders[key] = self._holders.get(key, 0) + 1
+            entry[0] += 1
+            weakref.finalize(t, self._release, key)
         self.peak_bytes = max(self.peak_bytes, self.live_bytes)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -255,15 +298,14 @@ class LocalOpCounter(OpCounter):
             return out
         if func.namespace == "_c10d_functional":
             # the collective's traffic goes to the log; its wait and
-            # autograd wrap hand the same tensor on
+            # autograd wrap hand the same storage on
             kind = _COLLECTIVES.get(func._opname)
             if kind is not None:
                 n = _group_size(args[-1])
                 for t in _tensors(out):
                     self.log.append((kind, n, t.numel() * t.element_size()))
-                self._hold(out)
+            self._hold(func, args, out)
             return out
         self._count(func, args, kwargs, out)
-        if not func.is_view:
-            self._hold(out)
+        self._hold(func, args, out)
         return out

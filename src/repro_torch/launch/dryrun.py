@@ -85,16 +85,27 @@ _SKIP_REASON = "pure full-attention arch at 500k (DESIGN.md long_500k " \
 
 
 def _calibration_cfg(cfg, groups: int):
-    """The config cut to `groups` layer-groups, its chunking kept, as
-    the reference's (whose compiles are unrolled; the port's stack
-    always is)."""
-    grp, n_groups = block_layout(cfg)
-    per_group = cfg.n_layers // n_groups if n_groups else 1
-    over = dict(scan_layers=False, n_layers=per_group * groups)
+    """The config cut to `groups` layer-groups, its chunking kept, and
+    the full config's group count.  An encoder-decoder's group is one
+    encoder layer and one decoder layer, so it has `enc_layers` groups
+    (the reference cuts it the same way but counts `n_layers` groups,
+    twice as many: its encoder-decoder cells count the layers' work
+    twice); one whose two stacks differ in depth has no such group and
+    is refused."""
+    over = dict(scan_layers=False)
     if cfg.family == "encdec":
-        over["enc_layers"] = groups
-        over["dec_layers"] = groups
-        over["n_layers"] = 2 * groups
+        if cfg.enc_layers != cfg.dec_layers:
+            raise ValueError(
+                f"{cfg.name}: the dry run measures an encoder-decoder by "
+                f"(encoder, decoder) layer pairs, which needs enc_layers "
+                f"== dec_layers (got {cfg.enc_layers} and "
+                f"{cfg.dec_layers})")
+        over.update(enc_layers=groups, dec_layers=groups,
+                    n_layers=2 * groups)
+        n_groups = cfg.enc_layers
+    else:
+        _, n_groups = block_layout(cfg)
+        over["n_layers"] = cfg.n_layers // n_groups * groups
     return dataclasses.replace(cfg, **over), n_groups
 
 
@@ -220,8 +231,14 @@ def calibrate_cell(arch, sp, mesh, cfg, n_dev, seq_parallel=None,
     body once; the port's trace counts every op that runs, so the model
     only bounds the trace time on the CPU.  Output bytes and the
     live-bytes peak do not grow with K: they come from the first two
-    traces, linear in G.  `view_fallbacks` counts the views of the
-    traces that `sharding/hints.py::ViewResharding` had to retry
+    traces.  Output bytes are linear in G (a decode returns every
+    group's caches), and so is a training step's peak (each group's
+    saved activations stay live until the backward); without autograd
+    nothing of a group's temporaries outlasts the next group, so every
+    group past the second holds what the second holds and the peak is
+    the two-group trace's (or the one-group trace's, if larger).
+    `view_fallbacks` counts the views of the traces that
+    `sharding/hints.py::ViewResharding` had to retry
     (`view_fallback_ops` lists up to 20 distinct ones).  The chunk
     loops are counted as they run, so `loop_flops_addback` (the
     reference's analytic add-back) is reported and not added."""
@@ -260,8 +277,12 @@ def calibrate_cell(arch, sp, mesh, cfg, n_dev, seq_parallel=None,
             out["per_group_flops"] = bodym
             out["outside_flops"] = max(f11[key] - bodym, 0.0)
     for key in ("out", "temp"):
-        body = max(f21[key] - f11[key], 0.0)
-        out[key] = max(f11[key] - body, 0.0) + n_groups * body
+        if key == "out" or is_train:  # a decode's caches, or each
+            # group's saved activations, stay live to the end
+            body = max(f21[key] - f11[key], 0.0)
+            out[key] = max(f11[key] - body, 0.0) + n_groups * body
+        else:  # no group's live set outlasts the next one's
+            out[key] = max(f11[key], f21[key])
     out["loop_flops_addback"] = analytic_loop_flops(cfg, sp, n_dev)
     out["view_fallbacks"] = len(fell)
     out["view_fallback_ops"] = sorted({repr(f) for f in fell})[:20]
@@ -286,9 +307,11 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
       seconds of the calibration traces;
     - `memory`: `argument_bytes` and `alias_bytes` (the arguments the
       step writes in place) from the full cell's local shards;
-      `output_bytes` and `temp_bytes` (the local trace's live-bytes
-      peak, `LocalOpCounter.peak_bytes`, arguments not included)
-      extrapolated in the group count; `code_bytes` None;
+      `output_bytes` (linear in the group count) and `temp_bytes` (the
+      local trace's live-bytes peak, `LocalOpCounter.peak_bytes`,
+      arguments not included; linear in the group count for training,
+      the larger of the one- and two-group traces' otherwise);
+      `code_bytes` None;
     - `flops_per_device`, `bytes_per_device`,
       `collective_bytes_per_device`: `calibrate_cell`'s (no add-back);
     - `*_raw_scanned`, `collectives_scanned_hlo`: the one-group,

@@ -296,8 +296,8 @@ def lm_backbone(params: LM, tokens, cfg: ModelConfig):
     grp, n_groups = block_layout(cfg)
     _, norm = _norm_fns(cfg)
     x = maybe_shard(_embed(params, tokens, cfg), "residual")
-    emb0 = x
     shared = params.shared if "shared" in params else None
+    emb0 = x if shared is not None else None  # kept only for its reader
     remat = (cfg.remat and torch.is_grad_enabled()
              and cfg.remat_policy != "everything")
     context_fn = remat_context(cfg.remat_policy) if remat else None

@@ -310,7 +310,14 @@ class HeadSplit:
     gathered over it (their gradient a partial sum over it, reduced
     back onto their split); every other axis keeps the batch split of q
     (or replicates).  The caller computes on the local tensors
-    (`local`) and wraps its output back (`wrap`)."""
+    (`local`) and wraps its output back (`wrap`).  Where q comes split
+    on its sequence over "model" (sequence parallelism: the residual's
+    rows, kept through the column-parallel products, whose weights are
+    gathered), q goes to the head split and the output back to the
+    sequence split by an all-to-all each, so that the output projection
+    also runs on the rank's rows with its weight gathered and leaves no
+    pending sum: the layout GSPMD gives the reference's block, which
+    moves weights and not (B, S, d) activations."""
 
     def __init__(self, q, mi: int, n_heads: int, n_kv: int):
         from torch.distributed.tensor import Partial, Replicate, Shard
@@ -319,6 +326,9 @@ class HeadSplit:
         batch = [Shard(0) if p.is_shard(0) and i != mi else Replicate()
                  for i, p in enumerate(q.placements)]
         self.q_place = batch[:mi] + [Shard(2)] + batch[mi + 1:]
+        self.rows = (list(q.placements) if q.placements[mi].is_shard(1)
+                     and not any(p.is_partial() for p in q.placements)
+                     else None)
         self.kv_place = batch
         self.kv_grad = batch[:mi] + [Partial()] + batch[mi + 1:]
         msz = self.mesh.size(mi)
@@ -336,12 +346,14 @@ class HeadSplit:
 
     def wrap(self, out, shape):
         """The local output (B_l, S, n * hd) as the DTensor (B, S, h *
-        hd) split like q."""
+        hd) split like q (on its heads), or back on q's sequence split."""
         from torch.distributed.tensor import DTensor
 
-        return DTensor.from_local(out, self.mesh, self.q_place,
-                                  run_check=False, shape=shape,
-                                  stride=_stride(shape))
+        out = DTensor.from_local(out, self.mesh, self.q_place,
+                                 run_check=False, shape=shape,
+                                 stride=_stride(shape))
+        return out if self.rows is None else out.redistribute(
+            self.mesh, self.rows)
 
 
 def head_split(q, n_heads: int, n_kv: int) -> Optional[HeadSplit]:

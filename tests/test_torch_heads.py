@@ -36,6 +36,11 @@ by the rules (d 512, KV heads 2 x 64, d_ff 1024, vocab 512):
   / atol 1e-5).  Also in every rank, on a (2, 2) mesh: a batch-1 decode
   over filled caches whose sequence the rules split over "data" (the
   long_500k layout), at position 37, against the unsharded step.
+- Sequence parallelism, in the same ranks: the train and prefill cells
+  again under `activation_hints(mesh, sp=True)` (the residual's rows
+  split over "model"), held to the same functions at the same
+  tolerances; where q heads split ("heads", "moe"), attention's output
+  goes back to q's sequence split (`HeadSplit.rows`) in both cells.
 """
 import json
 import os
@@ -193,6 +198,7 @@ def test_decode_reads_the_cache_on_its_split(structure, name):
 
 # ------------------------------------------------ numerics, 4-rank gloo --
 _RANK = textwrap.dedent("""
+    import contextlib
     import json
     import sys
     import numpy as np
@@ -209,8 +215,17 @@ _RANK = textwrap.dedent("""
                                     lm_cache_to_numpy, lm_decode_step,
                                     lm_prefill)
     from repro_torch.optim import adamw
+    from repro_torch.sharding import hints
 
     torch.set_num_threads(1)
+    row_wraps = []  # HeadSplit.wrap calls that return to q's rows
+    plain_wrap = hints.HeadSplit.wrap
+
+    def counted_wrap(self, out, shape):
+        row_wraps.append(self.rows is not None)
+        return plain_wrap(self, out, shape)
+
+    hints.HeadSplit.wrap = counted_wrap
     rank, world, port, path = (int(sys.argv[1]), int(sys.argv[2]),
                                sys.argv[3], sys.argv[4])
     configs, opt_over = json.loads(sys.argv[5]), json.loads(sys.argv[6])
@@ -229,8 +244,9 @@ _RANK = textwrap.dedent("""
         assert cell.fn.fallbacks == [], cell.fn.fallbacks
         return out
 
-    def run(arch, cfg, saved):
-        mesh = Mesh((1, 4), ("data", "model"))
+    # the train and prefill cells (run under `hint`) against the
+    # unsharded port functions; their results in `saved` under `pre`
+    def train_and_prefill(arch, cfg, mesh, saved, pre, hint):
         opt = adamw.AdamWConfig(**opt_over)
         cell = build_cell(arch, ShapeSpec("t", 64, 8, "train"), mesh, cfg,
                           opt_cfg=opt, device="cpu", seed=3)
@@ -239,22 +255,33 @@ _RANK = textwrap.dedent("""
         rout = make_train_step(cfg, opt)(
             ref, adamw.init(dict(ref.named_parameters())),
             guard_init(GUARD_CFG, "cpu"), batch)
-        out = call(cell)
+        with hint():
+            out = call(cell)
         for k in ("loss", "grad_norm", "lr", "skipped", "ce"):
-            close(out[3][k], rout[3][k], k, atol=0.0)
-            saved["metric_" + k] = full(out[3][k]).numpy()
+            close(out[3][k], rout[3][k], pre + k, atol=0.0)
+            saved[pre + "metric_" + k] = full(out[3][k]).numpy()
         for (n, p), q in zip(out[0].named_parameters(), ref.parameters()):
-            close(p.detach(), q.detach(), n, rtol=1e-3, atol=1e-6)
-            saved["param_" + n] = full(p.detach()).numpy()
-        saved["tokens"] = batch["tokens"].numpy()
+            close(p.detach(), q.detach(), pre + n, rtol=1e-3, atol=1e-6)
+            saved[pre + "param_" + n] = full(p.detach()).numpy()
+        saved[pre + "tokens"] = batch["tokens"].numpy()
         cell = build_cell(arch, ShapeSpec("p", 64, 8, "prefill"), mesh,
                           cfg, device="cpu", seed=5)
         tokens = full(cell.args[1]).clone()
-        logits = call(cell)
+        with hint():
+            logits = call(cell)
         ref = init_lm_params(5, cfg, device="cpu")
-        close(logits, lm_prefill(ref, tokens, cfg), "prefill")
-        saved["prefill_tokens"] = tokens.numpy()
-        saved["prefill_logits"] = full(logits).numpy()
+        close(logits, lm_prefill(ref, tokens, cfg), pre + "prefill")
+        saved[pre + "prefill_tokens"] = tokens.numpy()
+        saved[pre + "prefill_logits"] = full(logits).numpy()
+
+    def run(arch, cfg, saved):
+        mesh = Mesh((1, 4), ("data", "model"))
+        train_and_prefill(arch, cfg, mesh, saved, "",
+                          contextlib.nullcontext)
+        row_wraps.clear()
+        train_and_prefill(arch, cfg, mesh, saved, "sp_",
+                          lambda: hints.activation_hints(mesh, sp=True))
+        saved["sp_row_wraps"] = np.array([sum(row_wraps), len(row_wraps)])
         cell = build_cell(arch, ShapeSpec("d", 64, 8, "decode"), mesh,
                           cfg, device="cpu", seed=4)
         token = full(cell.args[1]).clone()
@@ -354,21 +381,19 @@ def _jax_params(seed, tc):
     return jax.tree_util.tree_map(jnp.asarray, tree)
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_train_cell_equals_the_jax_step(gloo_heads, name):
-    got = gloo_heads[name]
+def _check_train(got, name, pre):
     jc, tc = _configs(name)
     jp = _jax_params(3, tc)
     jp, _, _, jm = jax.jit(jmake_train_step(jc, jadamw.AdamWConfig(**OPT)))(
         jp, jadamw.init(jp), jguard_init(JGUARD_CFG),
-        {"tokens": jnp.asarray(got["tokens"])})
+        {"tokens": jnp.asarray(got[pre + "tokens"])})
     for k in ("loss", "grad_norm", "lr", "skipped", "ce"):
-        np.testing.assert_allclose(got["metric_" + k], float(jm[k]),
+        np.testing.assert_allclose(got[pre + "metric_" + k], float(jm[k]),
                                    rtol=1e-4, err_msg=k)
     model = init_lm_params(3, tc, device="cpu")
     with torch.no_grad():
         for n, p in model.named_parameters():
-            p.copy_(torch.from_numpy(got["param_" + n]))
+            p.copy_(torch.from_numpy(got[pre + "param_" + n]))
     tree = lm_params_to_numpy(model)
     for (path, a), b in zip(
             jax.tree_util.tree_flatten_with_path(
@@ -378,14 +403,44 @@ def test_train_cell_equals_the_jax_step(gloo_heads, name):
                                    err_msg=jax.tree_util.keystr(path))
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_prefill_cell_equals_the_jax_prefill(gloo_heads, name):
-    got = gloo_heads[name]
+def _check_prefill(got, name, pre):
     jc, tc = _configs(name)
     logits = jax.jit(lambda p, t: jprefill(p, t, jc))(
-        _jax_params(5, tc), jnp.asarray(got["prefill_tokens"]))
-    np.testing.assert_allclose(got["prefill_logits"],
+        _jax_params(5, tc), jnp.asarray(got[pre + "prefill_tokens"]))
+    np.testing.assert_allclose(got[pre + "prefill_logits"],
                                np.asarray(logits), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_train_cell_equals_the_jax_step(gloo_heads, name):
+    _check_train(gloo_heads[name], name, "")
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_prefill_cell_equals_the_jax_prefill(gloo_heads, name):
+    _check_prefill(gloo_heads[name], name, "")
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_seq_parallel_train_cell_equals_the_jax_step(gloo_heads, name):
+    _check_train(gloo_heads[name], name, "sp_")
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_seq_parallel_prefill_cell_equals_the_jax_prefill(gloo_heads,
+                                                         name):
+    _check_prefill(gloo_heads[name], name, "sp_")
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_seq_parallel_attention_returns_to_the_rows(gloo_heads, name):
+    """Where the query heads split, every attention output of the two
+    sequence-parallel cells goes back to q's sequence split."""
+    back, calls = gloo_heads[name]["sp_row_wraps"]
+    if name == "rows":  # RowSplit: no head split
+        assert calls == 0
+    else:
+        assert calls > 0 and back == calls, (back, calls)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
