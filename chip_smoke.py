@@ -213,12 +213,30 @@ CUDA toolkit.  The phases, each of which raises on failure:
                the card, all started together: each must exit 0 (their
                own checks), and each reports the kernel launches it
                made; `teda_scan` and `teda_q_scan` must launch.
+  14. remat  — the two-level (sqrt) layer remat of `cfg.outer_scan` on
+               the training path, which launches none of the three TEDA
+               kernels: (a) llama3.2-1b `reduced()` at 4 groups in f32
+               under "nothing", the backward's aten.mm / aten.bmm
+               counted: with `outer_scan=2` it re-runs 2 groups' forward
+               products more than the flat loop; (b) chameleon-34b at
+               its published width (d 8192, 64 heads / 8 kv, d_ff
+               22016, vocab 65536) with its depth cut to 6 of 48
+               layers, batch 1 x 4096, weights N(0, 0.02) from a
+               generator on the card, one loss-and-gradient step (no
+               optimizer) per variant: `outer_scan` 0 and 3 (3 outer
+               steps of 2 groups) under "nothing" and "dots", each one
+               warm-up and 3 timed steps: the peak memory beyond the
+               parameters and gradients (`max_memory_allocated`), ms
+               per step (median), the loss (finite), the gradients'
+               largest difference from the flat path of the same
+               policy (bit-equal); "dots" two-level must peak lower.
 
 The last three lines are the kernels' JSON record (`launches` from
 phase 5, `launches_serve` from phase 6, `launches_fleet` from phase 7's
 gateway runs, `launches_lm` from phase 9 (b), `launches_families` from
 phase 10 (b), `launches_distributed` from phase 11, `launches_sharded`
-from phase 12, `launches_examples` from phase 13), the card's name and power limit as nvidia-smi prints
+from phase 12, `launches_examples` from phase 13, `launches_remat` from
+phase 14), the card's name and power limit as nvidia-smi prints
 them, and {"ok": true, "device": ...}.
 It exits non-zero without a result when CUDA is unavailable or the
 package is not beside it.
@@ -245,6 +263,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 C_WIDE, T_CHUNK, N_CHUNKS = 65_536, 512, 8
@@ -3734,6 +3753,216 @@ def phase_examples(smi):
     return total
 
 
+# phase 14: the two-level (sqrt) layer remat of `cfg.outer_scan`
+REMAT_ARCH = "chameleon-34b"
+REMAT_LAYERS = 6  # of 48: the f32 parameters and gradients fit one card
+REMAT_OUTER = 3  # 3 outer steps x 2 groups (the published 8 x 6 at 48)
+REMAT_SHAPE = dict(batch=1, seq=4096)
+REMAT_STEPS = 3  # timed, after one warm-up step
+REMAT_POLICIES = ("nothing", "dots")
+# (c) on the card: llama3.2-1b reduced, 4 groups in 2 outer steps, f32
+REMAT_COUNT = dict(n_layers=4, outer_scan=2, batch=2, seq=16)
+
+
+class _ProductCount(TorchDispatchMode):
+    """aten.mm / aten.bmm calls, the backward's counted apart."""
+
+    def __init__(self):
+        super().__init__()
+        self.backward = False
+        self.counts = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default):
+            key = (self.backward, func.__name__.split(".")[0])
+            self.counts[key] = self.counts.get(key, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def _remat_counts(seed, smi, dev):
+    """(a) on the card's torch: the products that a "nothing" step's
+    backward runs, two-level against flat, no remat and half the
+    depth; the two-level path re-runs `n_groups - go` groups' forward
+    products more than the flat loop (tests/test_torch_outer_scan.py's
+    count on the CPU)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm_params, lm_loss
+
+    n, go = REMAT_COUNT["n_layers"], REMAT_COUNT["outer_scan"]
+    b, s = REMAT_COUNT["batch"], REMAT_COUNT["seq"]
+    base = get_config("llama3.2-1b").reduced(
+        compute_dtype="float32", remat=True, remat_policy="nothing",
+        n_layers=n, outer_scan=go)
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, base.vocab, (b, s + 1), generator=gen).to(dev)
+    counts = {}
+    for name, over in (("outer", {}), ("flat", dict(outer_scan=0)),
+                       ("plain", dict(remat=False)),
+                       ("half", dict(remat=False, n_layers=n // 2))):
+        cfg = dataclasses.replace(base, **over)
+        model = init_lm_params(seed, cfg, device=dev)
+        mode = _ProductCount()
+        with mode:
+            loss, _ = lm_loss(model, {"tokens": toks}, cfg)
+            mode.backward = True
+            loss.backward()
+        counts[name] = mode.counts
+    for op in ("mm", "bmm"):
+        fwd = {k: c.get((False, op), 0) for k, c in counts.items()}
+        bwd = {k: c.get((True, op), 0) for k, c in counts.items()}
+        per_group = (fwd["plain"] - fwd["half"]) // (n - n // 2)
+        check(fwd["outer"] == fwd["flat"] == fwd["plain"],
+              f"remat (a): forward {op} counts {fwd} differ")
+        check(bwd["outer"] - bwd["flat"] == (n - go) * per_group,
+              f"remat (a): the two-level backward ran {bwd['outer']} {op}, "
+              f"the flat {bwd['flat']}, not {(n - go) * per_group} more "
+              f"({per_group} per group forward)")
+        log(f"[remat] (a) {op}, {n} groups in {go} outer steps "
+            f"(\"nothing\", {b} x {s}, f32): forward {fwd['flat']}, "
+            f"backward two-level {bwd['outer']} / flat {bwd['flat']} / no "
+            f"remat {bwd['plain']}; one group's forward {per_group}, so "
+            f"the two-level path re-runs {(bwd['outer'] - bwd['plain'])} "
+            f"= {(bwd['outer'] - bwd['plain']) / per_group:.2f} group "
+            f"forwards' {op} and the flat "
+            f"{(bwd['flat'] - bwd['plain']) / per_group:.2f}; torch "
+            f"{torch.__version__}; {smi}")
+
+
+def _remat_model(cfg, dev, seed):
+    """`cfg`'s LM on the card, N(0, 0.02) weights from a generator on
+    the card (`init_lm_params` draws 4.7e9 normals on the CPU, too slow
+    here); the norm scales at their init's 0."""
+    from repro_torch.models.transformer import LM
+
+    model = LM(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() > 1:
+                p.normal_(0.0, 0.02, generator=gen)
+    return model
+
+
+def _remat_variant(model, batch, cfg, smi):
+    """One warm-up loss-and-gradient step, then `REMAT_STEPS` timed ones
+    from zeroed gradients: (ms per step each, the peak bytes beyond what
+    is held once the parameters and gradients exist, the loss)."""
+    from repro_torch.models import lm_loss
+
+    def step():
+        model.zero_grad(set_to_none=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = lm_loss(model, batch, cfg)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.detach(), (time.perf_counter() - t0) * 1e3
+
+    step()
+    model.zero_grad(set_to_none=False)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for _ in range(REMAT_STEPS):
+        loss, t = step()
+        ms.append(t)
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated() - held
+    check(all(torch.equal(a, losses[0]) for a in losses),
+          f"remat {cfg.remat_policy} outer_scan={cfg.outer_scan}: the same "
+          f"step gave losses {[float(a) for a in losses]}")
+    return ms, peak, losses[0]
+
+
+def _remat_full(seed, smi, dev):
+    """(b): chameleon-34b at its published width, cut to
+    `REMAT_LAYERS` layers, a loss-and-gradient step (no optimizer) flat
+    and with `outer_scan = REMAT_OUTER`, under each of
+    `REMAT_POLICIES`: peak memory, ms per step, the loss, the gradients
+    bit-equal to the flat path's; "dots" two-level must peak lower."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config(REMAT_ARCH)
+    cfg = dataclasses.replace(full, n_layers=REMAT_LAYERS)
+    b, s = REMAT_SHAPE["batch"], REMAT_SHAPE["seq"]
+    torch.cuda.empty_cache()
+    model = _remat_model(cfg, dev, seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s + 1), device=dev,
+                                     generator=gen)}
+    log(f"[remat] (b) {cfg.name} ({cfg.n_layers} of {full.n_layers} layers x "
+        f"{cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads} heads / "
+        f"{cfg.n_kv} kv, vocab {cfg.vocab}, {n_params} parameters, f32 "
+        f"parameters, {cfg.compute_dtype} compute), batch {b} x {s}, "
+        f"outer_scan {REMAT_OUTER} (published {full.outer_scan} at "
+        f"{full.n_layers} layers), a loss-and-gradient step, no optimizer")
+    peaks = {}
+    for policy in REMAT_POLICIES:
+        flat = None
+        for go in (0, REMAT_OUTER):
+            vcfg = dataclasses.replace(cfg, remat_policy=policy,
+                                       outer_scan=go)
+            ms, peak, loss = _remat_variant(model, batch, vcfg, smi)
+            peaks[policy, go] = peak
+            check(bool(torch.isfinite(loss)), f"remat {policy} outer_scan="
+                  f"{go}: loss {float(loss)!r}")
+            grads = [p.grad for p in model.parameters()]
+            if flat is None:
+                flat = (loss, [g.clone() for g in grads])
+                diff, same = 0.0, True
+            else:
+                diff = max(float((a - g).abs().max())
+                           for a, g in zip(flat[1], grads))
+                same = torch.equal(flat[0], loss) and all(
+                    torch.equal(a, g) for a, g in zip(flat[1], grads))
+            log(f"[remat] (b) {policy} outer_scan={go}: peak {peak} B "
+                f"({peak / 1e9:.3f} GB) beyond the parameters and "
+                f"gradients, {float(np.median(ms)):.3f} ms per step "
+                f"(median of {' '.join(f'{t:.3f}' for t in ms)}), loss "
+                f"{float(loss)!r}, gradients' largest difference from the "
+                f"flat path {diff!r} (bit-equal: {same}); on {smi}")
+            check(same, f"remat {policy}: outer_scan={go}'s loss or "
+                  f"gradients differ from the flat path's (largest "
+                  f"difference {diff!r})")
+        del flat
+        torch.cuda.empty_cache()
+    drop = {pol: peaks[pol, 0] - peaks[pol, REMAT_OUTER]
+            for pol in REMAT_POLICIES}
+    log(f"[remat] (b) peak drop, flat less two-level: "
+        + ", ".join(f"{pol} {d} B ({d / 1e9:.3f} GB)"
+                    for pol, d in drop.items()) + f"; on {smi}")
+    check(drop["dots"] > 0, f"remat: \"dots\" with outer_scan="
+          f"{REMAT_OUTER} peaked at {peaks['dots', REMAT_OUTER]} B, the "
+          f"flat path at {peaks['dots', 0]} B")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_remat(seed, smi):
+    """Phase 14: the two-level layer remat on the training path, which
+    launches none of the three TEDA kernels.  Returns their launches
+    (zero), counted from zero over the phase."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    mods = _kernel_mods()
+    for mod in mods.values():
+        mod.launches = 0
+    timed(_remat_counts, seed, smi, dev)
+    timed(_remat_full, seed, smi, dev)
+    launches = {name: mod.launches for name, mod in mods.items()}
+    check(not any(launches.values()), f"remat: TEDA kernels launched "
+          f"{launches} on the training path")
+    log(f"[remat] no TEDA kernel launched; phase 14 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def profile_window(backend, eng, feed, warmup=2):
     """Where an engine call's time goes: torch.profiler over the
     `process` calls of `feed` but the first `warmup`, which the profiler
@@ -3830,6 +4059,7 @@ def main(argv=None):
     lm = timed(phase_lm, args.seed, smi)
     families = timed(phase_families, args.seed, smi)
     examples = timed(phase_examples, smi)
+    remat = timed(phase_remat, args.seed, smi)
     procs = _dry_children()
     try:
         distributed = timed(phase_distributed, args.seed, smi)
@@ -3845,6 +4075,7 @@ def main(argv=None):
         rec["launches_distributed"] = distributed[name]
         rec["launches_sharded"] = sharded[name]
         rec["launches_examples"] = examples[name]
+        rec["launches_remat"] = remat[name]
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "repro" or m.startswith("repro.")
                   for m in sys.modules), "the JAX package was imported")
@@ -3852,7 +4083,8 @@ def main(argv=None):
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_serve", "launches_fleet", "launches_lm",
             "launches_families", "launches_distributed",
-            "launches_sharded", "launches_examples", "max_abs_err",
+            "launches_sharded", "launches_examples", "launches_remat",
+            "max_abs_err",
             "ms",
             "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -35,9 +35,19 @@ block) with `torch.utils.checkpoint`, the reference's `jax.checkpoint`:
 the matrix products without batch dims (`mm`, `addmm`: the dense
 layers; not the attention's `bmm`), the reference's
 `checkpoint_dots_with_no_batch_dims`, and recomputes the rest;
-"everything" runs without it.  `cfg.scan_layers` and `cfg.outer_scan`
-change only how XLA compiles the stack, so the port ignores them: the
-numerics are the same.
+"everything" runs without it.  `cfg.scan_layers` alone only shapes how
+XLA compiles the stack, so the port's loop ignores it.  With it,
+`cfg.outer_scan = go` is the reference's two-level (sqrt) remat: when
+`go` divides the group count, is below it and `cfg.remat` is on, the
+groups run as `go` outer steps of `n_groups / go` groups, each outer
+step one checkpoint that saves only its input (under every policy,
+"everything" too: the reference's `nothing_saveable`) around the
+per-group checkpoints.  A training step then holds `go` residuals plus
+one outer step's groups while that step is recomputed, instead of every
+group's saved tensors, and the backward runs `n_groups - go` group
+forwards more (the recompute of an outer step stops once it has its
+last group's input).  Under "dots" the outer step's recompute caches
+the groups' products (`_OuterStep`).  The numerics are the flat loop's.
 
 `lm_backbone` calls `sharding/hints.py::maybe_shard` on the residual
 where the reference does (after the embedding, at each group's entry):
@@ -46,6 +56,7 @@ DTensor.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -76,7 +87,7 @@ from repro_torch.sharding.hints import (maybe_shard, vocab_parallel_ce,
 __all__ = ["BlockDef", "block_layout", "LM", "init_lm_params",
            "lm_backbone", "lm_logits", "lm_forward", "chunked_ce",
            "lm_loss", "init_cache", "lm_decode_step", "lm_prefill",
-           "DOTS", "remat_context"]
+           "DOTS", "remat_context", "outer_steps"]
 
 # the matrix products without batch dims: what "dots" saves
 DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
@@ -291,6 +302,92 @@ def _group_body(x, blocks, cfg, shared, emb0):
     return x, aux_acc
 
 
+def _run_group(x, group, cfg, shared, emb0, context_fn):
+    """One group, checkpointed under `context_fn` (not where it is
+    None): (x, its aux)."""
+    if context_fn is None:
+        return _group_body(x, group, cfg, shared, emb0)
+    return checkpoint(_group_body, x, group, cfg, shared, emb0,
+                      use_reentrant=False, context_fn=context_fn)
+
+
+class _OuterStep:
+    """One outer step's selective ("dots") group checkpoints.
+
+    A selective checkpoint keeps the products it saves in a storage of
+    its own, outside autograd's saved-tensor hooks, so an enclosing
+    checkpoint cannot drop them: nested as they are in the flat loop,
+    every group's products would stay live to the backward.  So the
+    outer step's forward runs its group checkpoints saving nothing but
+    their inputs (which the outer checkpoint drops), and its recompute
+    in the backward, which re-runs the groups just before their own
+    recomputes, is what caches each group's products; each group's
+    recompute then reads them from that cache, as the reference's inner
+    `checkpoint_dots_with_no_batch_dims` does.  The outer recompute
+    stops at its last group's inputs, so that group caches nothing and
+    its recompute runs whole, products included (the same arithmetic)."""
+
+    def __init__(self, n: int):
+        self.runs = 0
+        self.cached = [None] * n  # each group's recompute context
+
+    def context_fns(self):
+        """The group checkpoints' `context_fn`s for this run of the
+        outer step: the forward, or a recompute."""
+        self.runs += 1
+        make = self._forward if self.runs == 1 else self._cache
+        return [functools.partial(make, j) for j in range(len(self.cached))]
+
+    def _forward(self, j):
+        return contextlib.nullcontext(), self._replay(j)
+
+    def _cache(self, j):
+        fwd, rec = create_selective_checkpoint_contexts(_dots_policy)
+        # the outer recompute's own group graph is never run backward
+        return self._filling(j, fwd, rec), contextlib.nullcontext()
+
+    @contextlib.contextmanager
+    def _filling(self, j, fwd, rec):
+        """`fwd`, caching group j's products; `rec` reads them once the
+        group's forward has run to its end."""
+        with fwd:
+            yield
+        self.cached[j] = rec
+
+    @contextlib.contextmanager
+    def _replay(self, j):
+        """Group j's recompute under the cache (taken, so it is freed
+        with what the recompute left unread), or whole where the outer
+        recompute cached nothing for it."""
+        ctx, self.cached[j] = self.cached[j] or contextlib.nullcontext(), None
+        with ctx:
+            yield
+
+
+def _outer_body(x, groups, cfg, shared, emb0, context_fns):
+    """One outer step of the two-level remat: its groups, checkpointed
+    under `context_fns()` (called once per run, the forward or a
+    recompute), and their aux summed first, as the reference sums its
+    inner scan's."""
+    auxs = []
+    for group, context_fn in zip(groups, context_fns()):
+        x, aux = _run_group(x, group, cfg, shared, emb0, context_fn)
+        auxs.append(aux)
+    return x, torch.stack(auxs).sum()
+
+
+def outer_steps(cfg: ModelConfig, n_groups: int) -> int:
+    """The two-level remat's outer step count, 0 where the flat loop
+    runs: the reference's conditions (`scan_layers`, `outer_scan`
+    dividing the groups and below their count, `remat`) and autograd
+    on."""
+    go = cfg.outer_scan
+    if (cfg.scan_layers and go and n_groups % go == 0 and go < n_groups
+            and cfg.remat and torch.is_grad_enabled()):
+        return go
+    return 0
+
+
 def lm_backbone(params: LM, tokens, cfg: ModelConfig):
     """tokens (B, S) int -> (final-norm hidden (B, S, d), aux)."""
     grp, n_groups = block_layout(cfg)
@@ -303,15 +400,21 @@ def lm_backbone(params: LM, tokens, cfg: ModelConfig):
     context_fn = remat_context(cfg.remat_policy) if remat else None
     blocks = params["blocks"]
     per = len(grp)
+    groups = [list(blocks[g * per:(g + 1) * per]) for g in range(n_groups)]
+    go = outer_steps(cfg, n_groups)
     auxs = []
-    for g in range(n_groups):
-        group = list(blocks[g * per:(g + 1) * per])
-        if remat:
-            x, aux = checkpoint(_group_body, x, group, cfg, shared, emb0,
-                                use_reentrant=False, context_fn=context_fn)
-        else:
-            x, aux = _group_body(x, group, cfg, shared, emb0)
-        auxs.append(aux)
+    if go:
+        gi = n_groups // go
+        for o in range(go):
+            fns = (_OuterStep(gi).context_fns if cfg.remat_policy == "dots"
+                   else lambda: [context_fn] * gi)
+            x, aux = checkpoint(_outer_body, x, groups[o * gi:(o + 1) * gi],
+                                cfg, shared, emb0, fns, use_reentrant=False)
+            auxs.append(aux)
+    else:  # x rebound group by group: no residual outlives its reader
+        for group in groups:
+            x, aux = _run_group(x, group, cfg, shared, emb0, context_fn)
+            auxs.append(aux)
     x = norm(params["final_norm"], x, cfg.norm_eps)
     return x, torch.stack(auxs).sum()
 
