@@ -1,0 +1,9 @@
+"""device_idle_pct: the share of the traced window in which no
+operation ran on the device, from the profiler's timeline."""
+
+
+def read(ctx):
+    tr = ctx["trace"]
+    if tr is None or tr.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s() / tr.window_s)
